@@ -26,6 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = """
 http:
   port: {port}
+{extra}
 cameras:
   - cam_t:
       width: 160
@@ -47,21 +48,18 @@ def _free_port():
     return port
 
 
-def _args(tmp_path):
+def _args(tmp_path, extra=''):
     port = _free_port()
     config_file = tmp_path / 'config.yaml'
-    config_file.write_text(CONFIG.format(port=port))
+    config_file.write_text(CONFIG.format(port=port, extra=extra))
     return port, _parse_commandline_arguments([
         '-c', str(config_file), '--model', 'ssd_mobilenet_v2_shapes',
         '-m', str(tmp_path / 'no_weights')])
 
 
-def test_torch_app_serves_detections(tmp_path, monkeypatch):
-    monkeypatch.setenv('WATSOR_DEVICE_POOL', 'cpu:1')
-    for knob in ('WATSOR_QUANTIZE', 'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS',
-                 'TRT_FLOAT_PRECISION', 'WATSOR_DEVICE_RENDER'):
-        monkeypatch.delenv(knob, raising=False)
-    port, args = _args(tmp_path)
+def _serve(tmp_path, extra=''):
+    """Run TorchApplication until detections flow; returns (app, metrics)."""
+    port, args = _args(tmp_path, extra)
     app = TorchApplication(args)
     thread = threading.Thread(target=app.run, daemon=True)
     thread.start()
@@ -95,6 +93,61 @@ def test_torch_app_serves_detections(tmp_path, monkeypatch):
         app._stop_main.set()
         thread.join(30)
     assert not thread.is_alive()
+    return app, metrics
+
+
+_KNOBS = ('WATSOR_QUANTIZE', 'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS',
+          'TRT_FLOAT_PRECISION', 'WATSOR_DEVICE_RENDER', 'WATSOR_CALIB_FILE',
+          'WATSOR_INT8_POINTWISE')
+
+
+def _clear_knobs(monkeypatch):
+    monkeypatch.setenv('WATSOR_DEVICE_POOL', 'cpu:1')
+    for knob in _KNOBS:
+        monkeypatch.delenv(knob, raising=False)
+
+
+def test_torch_app_serves_detections(tmp_path, monkeypatch):
+    _clear_knobs(monkeypatch)
+    _serve(tmp_path)
+
+
+@pytest.mark.parametrize('quantize,pointwise', [('int8_full', 'pallas'),
+                                                ('int8', None)])
+def test_torch_app_serves_int8_with_exact_nms(tmp_path, monkeypatch,
+                                              quantize, pointwise):
+    """WATSOR_QUANTIZE=int8_full (calibrated on seeded noise, pointwise
+    units through the kernel wrapper) and int8 (int8 weights dequantized
+    each step), with the classic per-class ``nms: exact``."""
+    _clear_knobs(monkeypatch)
+    monkeypatch.setenv('WATSOR_QUANTIZE', quantize)
+    if pointwise:
+        monkeypatch.setenv('WATSOR_INT8_POINTWISE', pointwise)
+    app, _ = _serve(tmp_path, extra='nms: exact')
+    detector = app._detectors[0]._backend._detector
+    assert detector.config.nms_mode == 'exact'
+    assert (detector.model is None) == (quantize == 'int8_full')
+
+
+def test_missing_calibration_file_raises(tmp_path, monkeypatch):
+    _clear_knobs(monkeypatch)
+    monkeypatch.setenv('WATSOR_QUANTIZE', 'int8_full')
+    monkeypatch.setenv('WATSOR_CALIB_FILE', str(tmp_path / 'none.npz'))
+    _, args = _args(tmp_path)
+    app = TorchApplication(args)
+    with pytest.raises(SystemExit, match='does not exist'):
+        app._setup(app._read_config())
+
+
+def test_int8_weights_refuse_fused_blocks(tmp_path, monkeypatch):
+    """int8 weights cannot feed the fused pack, which folds float kernels."""
+    _clear_knobs(monkeypatch)
+    monkeypatch.setenv('WATSOR_QUANTIZE', 'int8')
+    monkeypatch.setenv('WATSOR_FUSED_BLOCKS', '1')
+    _, args = _args(tmp_path)
+    app = TorchApplication(args)
+    with pytest.raises(SystemExit, match='WATSOR_FUSED_BLOCKS'):
+        app._setup(app._read_config())
 
 
 _BOOT = r"""
@@ -137,8 +190,7 @@ def test_device_pool_refuses_a_silent_cpu_fallback(monkeypatch):
     assert [d.type for d in resolve_device_pool('cpu:1')] == ['cpu']
 
 
-@pytest.mark.parametrize('knob,value', [('WATSOR_QUANTIZE', 'int8'),
-                                        ('WATSOR_FLEET', '1'),
+@pytest.mark.parametrize('knob,value', [('WATSOR_FLEET', '1'),
                                         ('WATSOR_DEVICE_RENDER', '1')])
 def test_unported_knobs_raise(tmp_path, monkeypatch, knob, value):
     monkeypatch.setenv('WATSOR_DEVICE_POOL', 'cpu:1')

@@ -133,6 +133,37 @@ def test_active_labels_match_jax(pair):
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=DETECT_TOL)
 
 
+@pytest.mark.parametrize('mode', ['exact', 'fast'])
+def test_per_class_detect_batch_matches_jax(pair, mode):
+    """``nms: exact`` (and ``fast``): every anchor decoded, f32 sigmoid over
+    the watched columns, per-class NMS and the label remap, as in the JAX
+    package: labels and counts equal, boxes and scores within 1e-4."""
+    jax_det, port = pair
+    cfg = jax_det.config._replace(nms_mode=mode, active_labels=(1, 3))
+    jax_sub = jax_build(cfg, params=jax_det.params)
+    port_sub = build_detector(port.config._replace(nms_mode=mode,
+                                                   active_labels=(1, 3)),
+                              variables=port.variables)
+    frames = np.random.default_rng(5).integers(0, 256, (2, 120, 160, 3),
+                                               np.uint8)
+    want = [np.asarray(a) for a in jax_sub.detect_batch(
+        jax_sub.params, jnp.asarray(frames))]
+    got = [a.numpy() for a in port_sub.detect_batch(
+        torch.from_numpy(frames))]
+    assert (want[3] > 0).all()
+    assert set(got[2][got[2] > 0].tolist()) <= {1, 3}
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=DETECT_TOL)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=DETECT_TOL)
+
+
+def test_unknown_nms_mode_raises():
+    with pytest.raises(ValueError, match='unknown nms mode'):
+        build_detector(SSDConfig(num_classes=3, input_size=SIZE,
+                                 nms_mode='soft'))
+
+
 def test_bridge_round_trips_the_variables_tree(pair):
     _, port = pair
     exported = export_variables(port.model)

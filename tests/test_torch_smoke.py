@@ -99,3 +99,20 @@ def test_profile_step_runs_on_the_card(tmp_path):
     assert result['detect_step_device_ms'] > 0
     assert 0 < result['profile']['busy_share'] <= 1
     assert (tmp_path / 'trace.json').exists()
+
+
+@pytest.mark.cuda
+def test_profile_step_int8_path_runs_on_the_card():
+    """The int8 path's step profile completes and reports device times
+    (run on the card: pytest -m cuda)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU with nvcc')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'watsor_tpu_torch.profile_step', '--path',
+         'int8', '--steps', '3'], capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result['path'] == 'int8' and result['detect_step_device_ms'] > 0
+    assert set(result['launch_host_us']) == {'int8_matmul_requant',
+                                             'pallas_suppress'}

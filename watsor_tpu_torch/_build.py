@@ -22,8 +22,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
-_lock = threading.Lock()
+_lock = threading.Lock()          # guards the two dicts
 _libs = {}
+_build_locks = {}                 # one per library: a build runs once
 
 
 def _nvcc():
@@ -52,16 +53,25 @@ def load(name, signatures, defines=()):
     """The ctypes library of ``csrc/<name>.cu``, built if not yet built.
     ``signatures`` maps each C entry point to its argument types; every
     entry point returns a CUDA error code. ``defines`` (``'NAME=value'``
-    strings) build a variant beside the default one, for A/B runs."""
+    strings) build a variant beside the default one, for A/B runs. Builds
+    of different libraries may run at once, from different threads."""
     flags = NVCC_FLAGS + tuple('-D' + d for d in defines)
+    key = (name, flags)
     with _lock:
-        lib = _libs.get((name, flags))
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        build_lock = _build_locks.setdefault(key, threading.Lock())
+    with build_lock:
+        with _lock:
+            lib = _libs.get(key)
         if lib is not None:
             return lib
         path = _library_path(name, flags)
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = '{}.{}.tmp'.format(path, os.getpid())
+            tmp = '{}.{}.{}.tmp'.format(path, os.getpid(),
+                                        threading.get_ident())
             source = os.path.join(CSRC_DIR, name + '.cu')
             proc = subprocess.run([_nvcc(), *flags, '-o', tmp, source],
                                   capture_output=True, text=True)
@@ -74,7 +84,8 @@ def load(name, signatures, defines=()):
             fn = getattr(lib, symbol)
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
-        _libs[(name, flags)] = lib
+        with _lock:
+            _libs[key] = lib
         return lib
 
 

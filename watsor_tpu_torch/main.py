@@ -8,8 +8,10 @@ queue, sieve, effects, snapshot, MQTT, HTTP) and overrides only what
 touches JAX: the detector build, the device-filter tables, the device
 pool, the platform pin and discovery probe in ``run``, and the profiler
 route. Knobs honoured as in the JAX package: ``TRT_FLOAT_PRECISION=32|16``,
-``WATSOR_FUSED_BLOCKS=1``, ``WATSOR_DEVICE_FILTERS=0``,
-``WATSOR_DEVICE_POOL``. Knobs whose paths are not ported yet raise.
+``WATSOR_FUSED_BLOCKS=1``, ``WATSOR_QUANTIZE=int8|int8_full`` (with
+``WATSOR_CALIB_FILE`` and ``WATSOR_INT8_POINTWISE=conv|dot|pallas``),
+``WATSOR_DEVICE_FILTERS=0``, ``WATSOR_DEVICE_POOL``. Knobs whose paths are
+not ported yet raise.
 """
 
 import json
@@ -92,13 +94,10 @@ class TorchApplication(Application):
 
     def _detector_factory(self, config):
         """device -> Detector, for the configured model and knobs."""
-        from watsor_tpu_torch.models.ssd_fused import build_fused_detector
-        from watsor_tpu_torch.models.zoo import MODEL_REGISTRY, \
-            build_from_zoo
-        for knob in ('WATSOR_QUANTIZE', 'WATSOR_FLEET'):
-            if os.environ.get(knob) not in (None, '', '0'):
-                raise SystemExit('{}={} {}'.format(
-                    knob, os.environ[knob], _NOT_PORTED))
+        from watsor_tpu_torch.models.zoo import MODEL_REGISTRY
+        if os.environ.get('WATSOR_FLEET') not in (None, '', '0'):
+            raise SystemExit('WATSOR_FLEET={} {}'.format(
+                os.environ['WATSOR_FLEET'], _NOT_PORTED))
         model_name, watched, nms_mode = detector_spec_from_config(
             config, self._args)
         dtype = None
@@ -108,7 +107,21 @@ class TorchApplication(Application):
             if dtype is None:
                 raise SystemExit('TRT_FLOAT_PRECISION must be 32 or 16, got '
                                  '{!r}'.format(precision))
-        fused = os.environ.get('WATSOR_FUSED_BLOCKS') == '1'
+        quantize_mode = os.environ.get('WATSOR_QUANTIZE') or None
+        if quantize_mode not in (None, '0', 'int8', 'int8_full'):
+            raise SystemExit('WATSOR_QUANTIZE must be int8 or int8_full, got '
+                             '{!r}'.format(quantize_mode))
+        # the int8 walk runs its own convolutions (WATSOR_FUSED_BLOCKS is
+        # ignored under int8_full, as in the JAX package)
+        fused = os.environ.get('WATSOR_FUSED_BLOCKS') == '1' and \
+            quantize_mode != 'int8_full'
+        if fused and quantize_mode == 'int8':
+            raise SystemExit('WATSOR_QUANTIZE=int8 with WATSOR_FUSED_BLOCKS=1 '
+                             'is not supported: the fused pack folds float '
+                             'kernels, not int8 ones')
+        calib = None
+        if quantize_mode == 'int8_full':
+            calib = self._calibration_images(model_name)
         self.DETECT_SIZE = MODEL_REGISTRY[model_name].input_size
         _LOGGER.info('Detection model: %s (input %dx%d, %s classes%s)',
                      model_name, self.DETECT_SIZE, self.DETECT_SIZE,
@@ -116,13 +129,57 @@ class TorchApplication(Application):
                      ', fused blocks' if fused else '')
 
         def make_detector(device):
+            from watsor_tpu_torch.models.zoo import build_from_zoo
             detector = build_from_zoo(model_name, self._args.model_path,
                                       active_labels=watched,
                                       nms_mode=nms_mode, dtype=dtype,
                                       device=device)
-            return build_fused_detector(detector) if fused else detector
+            if quantize_mode == 'int8':
+                # int8 kernels on the device, dequantized in each step
+                from watsor_tpu_torch.models.quantize import \
+                    build_quantized_detector
+                detector = build_quantized_detector(
+                    detector.config, detector.variables,
+                    anchors=detector.anchors, device=device)
+                _LOGGER.info('Weights quantized to int8')
+            elif quantize_mode == 'int8_full':
+                from watsor_tpu_torch.models.ssd_int8 import \
+                    build_int8_detector
+                detector = build_int8_detector(detector, calib)
+                _LOGGER.info('Full int8-activation inference enabled')
+            elif fused:
+                from watsor_tpu_torch.models.ssd_fused import \
+                    build_fused_detector
+                detector = build_fused_detector(detector)
+            return detector
 
         return make_detector
+
+    def _calibration_images(self, model_name):
+        """The int8_full calibration frames: WATSOR_CALIB_FILE (an npz with
+        'images' [N, H, W, 3] uint8), else seeded noise with a warning."""
+        import numpy as np
+        from watsor_tpu_torch.models.zoo import MODEL_REGISTRY
+        if not model_name.startswith('ssd_mobilenet_v2'):
+            raise SystemExit(
+                'WATSOR_QUANTIZE=int8_full supports the plain '
+                'ssd_mobilenet_v2 model only (got {})'.format(model_name))
+        calib_file = os.environ.get('WATSOR_CALIB_FILE')
+        if calib_file:
+            if not os.path.exists(calib_file):
+                raise SystemExit(
+                    'WATSOR_CALIB_FILE={} does not exist — refusing '
+                    'to silently calibrate on noise'.format(calib_file))
+            with np.load(calib_file) as data:
+                return data['images']
+        _LOGGER.warning(
+            'WATSOR_QUANTIZE=int8_full without a calibration '
+            'set (WATSOR_CALIB_FILE): calibrating activation '
+            'scales on random noise — provide real frames for '
+            'production accuracy')
+        size = MODEL_REGISTRY[model_name].input_size
+        return np.random.RandomState(0).randint(0, 255, (8, size, size, 3),
+                                                np.uint8)
 
     def _setup(self, config):
         from watsor_tpu_torch.detection import (TorchDetectorBackend,

@@ -19,11 +19,11 @@ from watsor_tpu_torch.models.mobilenet_v2 import (ConvBNReLU6,
                                                   cast_convs, conv_same)
 from watsor_tpu_torch.ops.anchors import (AnchorSpec, anchors_per_location,
                                           ssd300_feature_shapes, ssd_anchors)
-from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION,
+from watsor_tpu_torch.ops.boxes import decode_boxes
+from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION, PER_CLASS_MODES,
+                                      batched_class_aware_nms,
                                       batched_class_aware_nms_fused_late)
 from watsor_tpu_torch.ops.preprocess import normalize_images, resize_bilinear
-
-_NOT_PORTED = 'not ported to watsor_tpu_torch yet (ROADMAP.md, queue A)'
 
 
 class SSDConfig(NamedTuple):
@@ -46,11 +46,11 @@ class SSDConfig(NamedTuple):
 
 
 def check_supported(cfg: SSDConfig):
-    """Raise for the NMS modes this slice leaves out."""
-    if cfg.nms_mode not in FUSED_SUPPRESSION:
-        raise NotImplementedError(
-            "nms mode {!r} is {}; use 'fused' or 'fused_exact'".format(
-                cfg.nms_mode, _NOT_PORTED))
+    """Raise for an unknown NMS mode."""
+    if cfg.nms_mode not in FUSED_SUPPRESSION and \
+            cfg.nms_mode not in PER_CLASS_MODES:
+        raise ValueError('unknown nms mode {!r}; one of {}'.format(
+            cfg.nms_mode, sorted(FUSED_SUPPRESSION) + list(PER_CLASS_MODES)))
 
 
 class SSD(nn.Module):
@@ -154,11 +154,13 @@ def active_label_array(cfg, device=None):
 def make_detect_batch(cfg, anchors_dev, raw_apply, normalize,
                       background_offset=1):
     """The one fused uint8-in -> detections-out step: device resize ->
-    ``normalize`` -> ``raw_apply`` -> active-label slice -> fused NMS with
-    late decode and f32 sigmoid -> 1-based label remap."""
+    ``normalize`` -> ``raw_apply`` -> active-label slice -> NMS -> 1-based
+    label remap. The fused modes decode and take the f32 sigmoid on the
+    candidate union only; the classic per-class modes decode every anchor
+    in f32 and take the f32 sigmoid of every watched column."""
     check_supported(cfg)
     active = active_label_array(cfg, anchors_dev.device)
-    suppression = FUSED_SUPPRESSION[cfg.nms_mode]
+    suppression = FUSED_SUPPRESSION.get(cfg.nms_mode)
 
     @torch.inference_mode()
     def detect_batch(images_u8):
@@ -168,13 +170,22 @@ def make_detect_batch(cfg, anchors_dev, raw_apply, normalize,
             cls_logits = logits[..., (active - 1 + background_offset).long()]
         else:
             cls_logits = logits[..., background_offset:]
-        b, s, c, v = batched_class_aware_nms_fused_late(
-            box_enc, cls_logits, anchors_dev,
-            scales=tuple(cfg.box_coder_scales),
-            iou_threshold=cfg.iou_threshold,
-            score_threshold=cfg.score_threshold,
-            max_detections=cfg.max_detections,
-            suppression=suppression)
+        if suppression is not None:
+            b, s, c, v = batched_class_aware_nms_fused_late(
+                box_enc, cls_logits, anchors_dev,
+                scales=tuple(cfg.box_coder_scales),
+                iou_threshold=cfg.iou_threshold,
+                score_threshold=cfg.score_threshold,
+                max_detections=cfg.max_detections,
+                suppression=suppression)
+        else:
+            boxes = decode_boxes(box_enc.float(), anchors_dev,
+                                 scales=tuple(cfg.box_coder_scales))
+            scores = torch.sigmoid(cls_logits.float())
+            b, s, c, v = batched_class_aware_nms(
+                boxes, scores, iou_threshold=cfg.iou_threshold,
+                score_threshold=cfg.score_threshold,
+                max_detections=cfg.max_detections, mode=cfg.nms_mode)
         if active is not None:
             c = torch.where(c > 0, active[(c - 1).clamp_min(0).long()], 0)
         return DetectionsBatch(b.float(), s.float(), c, v)

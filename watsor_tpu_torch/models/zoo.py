@@ -47,7 +47,7 @@ def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
     """Build a detector on ``device``, adopting stored weights when
     present. ``active_labels`` restricts post-processing to these 1-based
     labels; ``dtype`` overrides the activation dtype; ``nms_mode`` picks
-    the fused NMS mode."""
+    the NMS mode (fused or per-class)."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError('model {!r} {}'.format(name, _NOT_PORTED))
     config = MODEL_REGISTRY[name]

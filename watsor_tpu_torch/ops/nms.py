@@ -1,14 +1,17 @@
-"""Fixed-shape, batched, class-aware NMS in the fused formulation
-(counterpart of watsor_tpu/ops/nms.py:117-233).
+"""Fixed-shape, batched, class-aware NMS (counterpart of
+watsor_tpu/ops/nms.py).
 
-One class-agnostic candidate union (the top ``union_m`` anchors by
-max-class logit), decode and f32 sigmoid on that union only, one shared
-IoU matrix, suppression for every class at once, and a top-k merge over
-classes. Ties in both top-k steps go to the lower index, as ``lax.top_k``
-orders them: a stable descending sort gives that order, ``torch.topk``
-promises none.
+The fused formulation: one class-agnostic candidate union (the top
+``union_m`` anchors by max-class logit), decode and f32 sigmoid on that
+union only, one shared IoU matrix, suppression for every class at once,
+and a top-k merge over classes. The classic per-class formulation
+(``batched_class_aware_nms``, modes ``exact``, ``fast`` and ``pallas``):
+the top-k of each class over every decoded anchor, suppression within
+each class, and the same merge. Ties in every top-k step go to the lower
+index, as ``lax.top_k`` orders them: a stable descending sort gives that
+order, ``torch.topk`` promises none.
 
-Suppression modes:
+Fused suppression modes:
   ``fast``           a candidate is dropped if ANY higher-ranked same-class
                      candidate overlaps it (Fast-NMS);
   ``greedy``         classic greedy NMS, the exact fixed point;
@@ -21,9 +24,11 @@ import torch
 
 from watsor_tpu_torch.ops.boxes import decode_boxes, iou_matrix
 from watsor_tpu_torch.ops.nms_fixed_point import fixed_point_suppress
+from watsor_tpu_torch.ops.nms_suppress import pallas_suppress
 
 FUSED_SUPPRESSION = {'fused': 'fast', 'fused_exact': 'greedy',
                      'fused_exact_pallas': 'greedy_pallas'}
+PER_CLASS_MODES = ('exact', 'fast', 'pallas')
 
 
 def _top_k_lower_index(values, k):
@@ -87,22 +92,66 @@ def _fused_suppress_merge(union_boxes, s, iou_threshold, score_threshold,
     out_classes = (out_idx // M + 1).to(torch.int32)
     out_boxes = torch.gather(union_boxes, 1,
                              box_idx[..., None].expand(B, n_out, 4))
+    return _finish(out_boxes, out_scores, out_classes, max_detections)
 
+
+def _finish(out_boxes, out_scores, out_classes, max_detections):
+    """Zero the entries without a score, count the valid ones, and pad to
+    ``max_detections``."""
     valid_mask = out_scores > 0.0
     out_classes = torch.where(valid_mask, out_classes, 0)
     out_boxes = torch.where(valid_mask[..., None], out_boxes, 0.0)
     valid = valid_mask.sum(dim=-1, dtype=torch.int32)
-    if n_out < max_detections:
-        pad = max_detections - n_out
+    pad = max_detections - out_scores.shape[-1]
+    if pad > 0:
         out_boxes = torch.nn.functional.pad(out_boxes, (0, 0, 0, pad))
         out_scores = torch.nn.functional.pad(out_scores, (0, pad))
         out_classes = torch.nn.functional.pad(out_classes, (0, pad))
     return out_boxes, out_scores, out_classes, valid
 
 
-def batched_class_aware_nms(boxes, scores, mode='exact', **kwargs):
-    """The classic per-class NMS modes of watsor_tpu/ops/nms.py (``exact``,
-    ``fast``, ``pallas``) are not ported yet; see ROADMAP.md."""
-    raise NotImplementedError(
-        "per-class NMS mode {!r} is not ported to watsor_tpu_torch yet "
-        "(ROADMAP.md, queue A); use nms: fused or fused_exact".format(mode))
+def _fast_keep(iou, iou_threshold):
+    """Keep i unless a higher-scored box overlaps it (Fast-NMS)."""
+    max_prev = torch.triu(iou, diagonal=1).amax(dim=-2)
+    return max_prev <= iou_threshold
+
+
+def batched_class_aware_nms(boxes, scores, iou_threshold=0.6,
+                            score_threshold=0.005, max_detections=100,
+                            per_class_k=100, mode='exact'):
+    """Classic per-class NMS (watsor_tpu/ops/nms.py:236-309).
+
+    boxes [B, A, 4] decoded, scores [B, A, C] (background removed) ->
+    (boxes [B, N, 4], scores [B, N], classes [B, N] int32 1-based with
+    0 = padding, valid [B] int32), N = ``max_detections``. Per class, the
+    top ``per_class_k`` candidates; ``exact`` and ``pallas`` suppress them
+    greedily through ops/nms_suppress.pallas_suppress (the CUDA kernel on
+    the card), ``fast`` with Fast-NMS; then a top-k merge over classes.
+    The fused modes run ``batched_class_aware_nms_fused_late``."""
+    if mode not in PER_CLASS_MODES:
+        raise ValueError('per-class NMS mode must be one of {}, got {!r}'
+                         .format(PER_CLASS_MODES, mode))
+    B, A, C = scores.shape
+    k = min(per_class_k, A)
+
+    top_scores, top_idx = _top_k_lower_index(scores.transpose(1, 2), k)
+    top_scores = top_scores.contiguous()                          # [B, C, k]
+    top_boxes = torch.gather(boxes[:, None].expand(B, C, A, 4), 2,
+                             top_idx[..., None].expand(B, C, k, 4))
+    zero = torch.zeros((), dtype=top_scores.dtype, device=scores.device)
+    if mode == 'fast':
+        keep = _fast_keep(iou_matrix(top_boxes, top_boxes), iou_threshold)
+        kept = torch.where(keep & (top_scores > score_threshold), top_scores,
+                           zero)
+    else:
+        surviving = pallas_suppress(top_boxes, top_scores, iou_threshold)
+        kept = torch.where(surviving > score_threshold, surviving, zero)
+
+    flat_scores = kept.reshape(B, C * k)
+    flat_boxes = top_boxes.reshape(B, C * k, 4)
+    n_out = min(max_detections, C * k)
+    out_scores, out_idx = _top_k_lower_index(flat_scores, n_out)
+    out_boxes = torch.gather(flat_boxes, 1,
+                             out_idx[..., None].expand(B, n_out, 4))
+    out_classes = (out_idx // k + 1).to(torch.int32)
+    return _finish(out_boxes, out_scores, out_classes, max_detections)

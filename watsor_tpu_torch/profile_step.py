@@ -1,26 +1,33 @@
 """Step profile of the port's main path on one CUDA card.
 
-    python -m watsor_tpu_torch.profile_step [--chunks 32,48,64]
+    python -m watsor_tpu_torch.profile_step [--path main|int8]
+                                            [--chunks 32,48,64]
                                             [--trace step_trace.json]
 
-Drives the workload of chip_smoke.py (``watsor_tpu_torch.workload``) at
+Drives a workload of chip_smoke.py (``watsor_tpu_torch.workload``) at
 batch 8 and prints a line per measurement, then all of them as one JSON
-object on the last line:
+object on the last line. ``--path main`` (the default) profiles the fused
+walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
+(int8_full, pointwise units through the kernel) with ``nms: exact``:
 
-- the forward of the plain model (convolutions with BatchNorm) and of the
-  fused walk, as device time (CUDA-graph replay, which leaves out the
+- the forward of the plain bf16 model (convolutions with BatchNorm) and of
+  the path's walk, as device time (CUDA-graph replay, which leaves out the
   host's launches) and as CUDA-event time around eager launches, each
-  model twice in the order plain, fused, fused, plain;
+  model twice in the order plain, path, path, plain;
 - ``TorchDetectorBackend.detect_batch`` wall time a step (H2D, detect,
-  filters, pack, the one D2H) in the same turns;
-- the fused_exact NMS and the whole fused detect step as device time;
-- a torch.profiler window over 10 fused backend steps: wall time, the
-  device's busy share (the union of its kernel and copy intervals), device
-  events a step, and the kernels with the most device time;
-- the 12 fused blocks as device time, the kernel at each chunk width of
-  ``--chunks`` (built with ``-DWT_FUSED_CHUNK``) against the plain version;
-- the host's cost of one launch through each kernel's wrapper (checks,
-  output allocation, the ctypes call), at the main path's shapes.
+  filters, pack, the one D2H) in the same turns (the plain model with
+  ``nms: fused_exact``);
+- the path's NMS and its whole detect step as device time;
+- a torch.profiler window over 10 of the path's backend steps: wall time,
+  the device's busy share (the union of its kernel and copy intervals),
+  device events a step, and the kernels with the most device time;
+- main path: the 12 fused blocks as device time, the kernel at each
+  chunk width of ``--chunks`` (built with ``-DWT_FUSED_CHUNK``) against
+  the plain version; int8 path: the 38 int8_matmul_requant calls of one
+  forward and the per-class suppression at C = 2 and C = 90, kernel
+  against plain version, as device time;
+- the host's cost of one launch through each of the path's kernel
+  wrappers (checks, output allocation, the ctypes call), at its shapes.
 
 Every time is a median. The card's name and power limit head the output;
 compare numbers only within one run.
@@ -39,11 +46,14 @@ import torch
 from watsor_tpu_torch import _build
 from watsor_tpu_torch.detection import TorchDetectorBackend
 from watsor_tpu_torch.ops import fused_block
+from watsor_tpu_torch.ops.boxes import decode_boxes
 from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION,
+                                      batched_class_aware_nms,
                                       batched_class_aware_nms_fused_late)
 from watsor_tpu_torch.workload import (BATCH, FRAME_HW, FUSED_SHAPES,
+                                       build_int8_path_detector,
                                        build_main_path_detector,
-                                       camera_filters)
+                                       calibration_frames, camera_filters)
 
 
 def wall_ms(fn, n):
@@ -123,11 +133,15 @@ def log(results, key, value, text):
     print(text, flush=True)
 
 
-def profile_models(device, results, steps):
-    """Plain against fused, NMS and the whole step; returns the profiler
-    window of the fused backend steps."""
+def profile_models(device, results, steps, path='main'):
+    """Plain against the path's walk, NMS and the whole step; returns the
+    profiler window of the path's backend steps."""
     plain = build_main_path_detector(device, fused=False)
-    fused = build_main_path_detector(device, fused=True)
+    if path == 'main':
+        walk, name = build_main_path_detector(device, fused=True), 'fused'
+    else:
+        walk = build_int8_path_detector(device, calibration_frames())
+        name = 'int8'
     cameras = ['cam{}'.format(i) for i in range(BATCH)]
     tables, refiners = camera_filters(cameras, FRAME_HW)
     size = plain.config.input_size
@@ -141,50 +155,61 @@ def profile_models(device, results, steps):
 
     turns = defaultdict(list)
     with torch.inference_mode():
-        for name, det in (('plain', plain), ('fused', fused),
-                          ('fused', fused), ('plain', plain)):
+        for label, det in (('plain', plain), (name, walk), (name, walk),
+                           ('plain', plain)):
             be = backend(det)
             step = wall_ms(lambda: be.detect_batch(images, senders=cameras),
                            steps)
             fwd = events_ms(lambda: det.raw_apply(x))
             fwd_dev = graph_ms(lambda: det.raw_apply(x))
-            turns[name].append({'step_wall_ms': step,
-                                'forward_events_ms': fwd,
-                                'forward_device_ms': fwd_dev})
+            turns[label].append({'step_wall_ms': step,
+                                 'forward_events_ms': fwd,
+                                 'forward_device_ms': fwd_dev})
             print('{}: detect_batch wall {:.3f} ms, forward {:.3f} ms with '
                   'host launches, {:.3f} ms on the device'.format(
-                      name, step, fwd, fwd_dev), flush=True)
+                      label, step, fwd, fwd_dev), flush=True)
         results['turns'] = dict(turns)
 
-        cfg = fused.config
-        box_enc, logits = fused.raw_apply(x)
-        active = sorted(fused.config.active_labels)
-        cls = logits[..., active].contiguous()
-        anchors = torch.from_numpy(fused.anchors).to(device)
+        cfg = walk.config
+        box_enc, logits = walk.raw_apply(x)
+        cls = logits[..., sorted(cfg.active_labels)].contiguous()
+        anchors = torch.from_numpy(walk.anchors).to(device)
+        if path == 'main':
+            def nms():
+                return batched_class_aware_nms_fused_late(
+                    box_enc, cls, anchors,
+                    scales=tuple(cfg.box_coder_scales),
+                    iou_threshold=cfg.iou_threshold,
+                    score_threshold=cfg.score_threshold,
+                    max_detections=cfg.max_detections,
+                    suppression=FUSED_SUPPRESSION[cfg.nms_mode])
+        else:
+            boxes = decode_boxes(box_enc, anchors,
+                                 scales=tuple(cfg.box_coder_scales))
+            scores = torch.sigmoid(cls)
 
-        def nms():
-            return batched_class_aware_nms_fused_late(
-                box_enc, cls, anchors, scales=tuple(cfg.box_coder_scales),
-                iou_threshold=cfg.iou_threshold,
-                score_threshold=cfg.score_threshold,
-                max_detections=cfg.max_detections,
-                suppression=FUSED_SUPPRESSION[cfg.nms_mode])
+            def nms():
+                return batched_class_aware_nms(
+                    boxes, scores, iou_threshold=cfg.iou_threshold,
+                    score_threshold=cfg.score_threshold,
+                    max_detections=cfg.max_detections, mode=cfg.nms_mode)
         nms_dev = graph_ms(nms)
         log(results, 'nms_device_ms', nms_dev,
-            'fused_exact NMS: {:.4f} ms on the device'.format(nms_dev))
+            '{} NMS: {:.4f} ms on the device'.format(cfg.nms_mode, nms_dev))
         nms_ev = events_ms(nms)
         log(results, 'nms_events_ms', nms_ev,
-            'fused_exact NMS: {:.4f} ms with host launches'.format(nms_ev))
+            '{} NMS: {:.4f} ms with host launches'.format(cfg.nms_mode,
+                                                          nms_ev))
         u8 = torch.tensor(images, device=device)
-        step_dev = graph_ms(lambda: fused.detect_batch(u8))
+        step_dev = graph_ms(lambda: walk.detect_batch(u8))
         log(results, 'detect_step_device_ms', step_dev,
-            'fused detect step (resize, forward, NMS): {:.3f} ms on the '
-            'device'.format(step_dev))
+            '{} detect step (resize, forward, NMS): {:.3f} ms on the '
+            'device'.format(name, step_dev))
 
-    return profile_trace(backend(fused), images, cameras, results)
+    return profile_trace(backend(walk), images, cameras, results, name)
 
 
-def profile_trace(be, images, cameras, results, steps=10, top=12):
+def profile_trace(be, images, cameras, results, label, steps=10, top=12):
     """torch.profiler over ``steps`` backend steps; returns the profiler."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -222,9 +247,9 @@ def profile_trace(be, images, cameras, results, steps=10, top=12):
                           'busy_share': busy_us / 1e3 / wall,
                           'device_events_per_step': len(spans) / steps,
                           'top_kernels': kernels}
-    print('torch.profiler, {} fused steps: wall {:.3f} ms, device busy '
+    print('torch.profiler, {} {} steps: wall {:.3f} ms, device busy '
           '{:.3f} ms ({:.1%}), {:.0f} device events a step'.format(
-              steps, wall, busy_us / 1e3, busy_us / 1e3 / wall,
+              steps, label, wall, busy_us / 1e3, busy_us / 1e3 / wall,
               len(spans) / steps), flush=True)
     for k in kernels:
         print('  {:6.1%} {:5d} x {:9.2f} us  {}'.format(
@@ -319,8 +344,82 @@ def profile_launch_cost(device, results):
           flush=True)
 
 
+def profile_int8_kernels(device, results):
+    """The int8 path's kernels against their plain versions as device
+    time: one forward's 38 int8_matmul_requant calls (each distinct shape
+    timed once and counted as often as the forward calls it) and the
+    per-class suppression at B = 8, K = 100."""
+    import collections
+    from watsor_tpu_torch.ops import int8_matmul, nms_suppress
+    from watsor_tpu_torch.workload import int8_pointwise_calls
+    rng = np.random.default_rng(0)
+    totals = defaultdict(float)
+    for (M, K, N, quantize, relu6), n in collections.Counter(
+            int8_pointwise_calls(BATCH)).items():
+        args = (torch.tensor(rng.integers(-127, 128, (M, K)),
+                             dtype=torch.int8, device=device),
+                torch.tensor(rng.integers(-127, 128, (K, N)),
+                             dtype=torch.int8, device=device),
+                torch.full((N,), 3e-4 / K ** 0.5, device=device),
+                torch.zeros(N, device=device), 0.047 if quantize else None,
+                relu6)
+        totals['kernel'] += n * graph_ms(
+            lambda: int8_matmul.int8_matmul_requant(*args))
+        totals['plain'] += n * graph_ms(
+            lambda: int8_matmul.int8_matmul_requant_plain(*args))
+    results['int8_matmul_forward_device_ms'] = dict(totals)
+    print('38 int8_matmul_requant calls of a forward on the device: kernel '
+          '{:.4f} ms, plain {:.4f} ms'.format(totals['kernel'],
+                                              totals['plain']), flush=True)
+    for C in (2, 90):
+        yx = rng.uniform(0, 1, (BATCH, C, 100, 2))
+        boxes = torch.tensor(np.concatenate([yx, yx + 0.1], -1),
+                             dtype=torch.float32, device=device)
+        scores = torch.tensor(-np.sort(-rng.uniform(0, 1, (BATCH, C, 100))),
+                              dtype=torch.float32, device=device)
+        kernel = graph_ms(lambda: nms_suppress.pallas_suppress(
+            boxes, scores, 0.6))
+        plain = graph_ms(lambda: nms_suppress.pallas_suppress_plain(
+            boxes, scores, 0.6), n=2, reps=3)
+        results['pallas_suppress_device_ms_C{}'.format(C)] = {
+            'kernel': kernel, 'plain': plain}
+        print('pallas_suppress B={} C={} K=100 on the device: kernel {:.4f} '
+              'ms, plain {:.4f} ms'.format(BATCH, C, kernel, plain),
+              flush=True)
+
+
+def profile_launch_cost_int8(device, results):
+    """Host time of one wrapper launch on the int8 path: its first
+    pointwise unit and the per-class suppression at C = 2, K = 100."""
+    from watsor_tpu_torch.ops.int8_matmul import int8_matmul_requant
+    from watsor_tpu_torch.ops.nms_suppress import pallas_suppress
+    from watsor_tpu_torch.workload import int8_pointwise_calls
+    rng = np.random.default_rng(0)
+    M, K, N, _, relu6 = int8_pointwise_calls(BATCH)[0]
+    x = torch.tensor(rng.integers(-127, 128, (M, K)), dtype=torch.int8,
+                     device=device)
+    w = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8,
+                     device=device)
+    scale = torch.full((N,), 1e-4, device=device)
+    bias = torch.zeros(N, device=device)
+    mm_us = host_us(lambda: int8_matmul_requant(x, w, scale, bias, 0.05,
+                                                relu6))
+    yx = rng.uniform(0, 1, (BATCH, 2, 100, 2))
+    boxes = torch.tensor(np.concatenate([yx, yx + 0.1], -1),
+                         dtype=torch.float32, device=device)
+    scores = torch.tensor(-np.sort(-rng.uniform(0, 1, (BATCH, 2, 100))),
+                          dtype=torch.float32, device=device)
+    nms_us = host_us(lambda: pallas_suppress(boxes, scores, 0.6))
+    results['launch_host_us'] = {'int8_matmul_requant': mm_us,
+                                 'pallas_suppress': nms_us}
+    print('host time a launch: int8_matmul_requant {:.2f} us, '
+          'pallas_suppress {:.2f} us'.format(mm_us, nms_us), flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--path', choices=('main', 'int8'), default='main',
+                        help='the main path (fused walk) or the int8 path')
     parser.add_argument('--chunks', default='48',
                         help='fused-block chunk widths to time, comma list '
                              '(multiples of 16)')
@@ -342,13 +441,17 @@ def main(argv=None):
     print(card, flush=True)
     print('torch {}, CUDA {}'.format(torch.__version__, torch.version.cuda),
           flush=True)
-    results = {'card': card, 'batch': BATCH}
-    prof = profile_models(device, results, args.steps)
+    results = {'card': card, 'batch': BATCH, 'path': args.path}
+    prof = profile_models(device, results, args.steps, args.path)
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    profile_blocks(device, results,
-                   [int(c) for c in args.chunks.split(',') if c.strip()])
-    profile_launch_cost(device, results)
+    if args.path == 'main':
+        profile_blocks(device, results,
+                       [int(c) for c in args.chunks.split(',') if c.strip()])
+        profile_launch_cost(device, results)
+    else:
+        profile_int8_kernels(device, results)
+        profile_launch_cost_int8(device, results)
     print(json.dumps(results), flush=True)
 
 

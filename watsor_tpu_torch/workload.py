@@ -1,15 +1,21 @@
-"""The slice's main-path workload, as chip_smoke.py and
-``python -m watsor_tpu_torch.profile_step`` drive it on the card.
+"""The port's card workloads, as chip_smoke.py and
+``python -m watsor_tpu_torch.profile_step`` drive them.
 
 ssd_mobilenet_v2 at 300x300 (1917 anchors, 90 classes), random weights
-from a seed, bf16 activations, ``nms: fused_exact`` over the watched labels
-{person, car}, the fused-block walk (WATSOR_FUSED_BLOCKS=1), and device
-filters for BATCH cameras of 1920x1080 frames, the first of them with the
-repository's demo zone mask (config/porch_mask.png).
+from a seed, over the watched labels {person, car}, with device filters for
+BATCH cameras of 1920x1080 frames, the first of them with the repository's
+demo zone mask (config/porch_mask.png). Two paths:
+
+- the main path: bf16 activations, ``nms: fused_exact``, the fused-block
+  walk (WATSOR_FUSED_BLOCKS=1);
+- the int8 path: WATSOR_QUANTIZE=int8_full with
+  WATSOR_INT8_POINTWISE=pallas, calibrated on seeded frames, bf16 heads,
+  ``nms: exact``.
 """
 
 import os
 
+import numpy as np
 import torch
 
 from watsor_tpu_torch.host import ZoneMask, coco_label_index, \
@@ -43,6 +49,55 @@ def build_main_path_detector(device, fused=True, seed=0):
                               nms_mode='fused_exact', dtype=torch.bfloat16,
                               device=device)
     return build_fused_detector(detector) if fused else detector
+
+
+def calibration_frames(size=300, n=BATCH, seed=0):
+    """Seeded uint8 calibration frames [n, size, size, 3]."""
+    return np.random.default_rng(seed).integers(0, 256, (n, size, size, 3),
+                                                np.uint8)
+
+
+def build_int8_path_detector(device, calib, seed=0):
+    """The int8 path's detector on ``device``, calibrated on ``calib``."""
+    from watsor_tpu_torch.models.ssd_int8 import build_int8_detector
+    from watsor_tpu_torch.models.zoo import build_from_zoo
+    detector = build_from_zoo(MODEL, None, seed=seed,
+                              active_labels=watched_labels(),
+                              nms_mode='exact', dtype=torch.bfloat16,
+                              device=device)
+    return build_int8_detector(detector, calib, pointwise='pallas')
+
+
+def int8_pointwise_calls(batch=BATCH, size=300):
+    """(M, K, N, int8 output, relu6) of each int8_matmul_requant call of one
+    int8 forward in forward order (38 at any input size): the expands,
+    block13's expand, the head and the extras' 1x1 units give int8 with
+    relu6; the projects int8 without relu6, or f32 where a residual adds."""
+    from watsor_tpu_torch.models.mobilenet_v2 import TAP_BLOCK, block_plan
+    from watsor_tpu_torch.models.ssd import SSDConfig
+
+    def down(h):                                  # a stride-2 'SAME' conv
+        return -(-h // 2)
+    h = down(size)
+    channels = 32
+    calls = []
+    for index, expand, features, strides in block_plan():
+        hidden = channels * expand
+        if expand != 1:
+            calls.append((batch * h * h, channels, hidden, True, True))
+        if strides == 2:
+            h = down(h)
+        residual = index != TAP_BLOCK and strides == 1 and \
+            channels == features
+        calls.append((batch * h * h, hidden, features, not residual, False))
+        channels = features
+    calls.append((batch * h * h, channels, 1280, True, True))
+    channels = 1280
+    for features in SSDConfig().extra_features:
+        calls.append((batch * h * h, channels, features // 2, True, True))
+        h = down(h)
+        channels = features
+    return calls
 
 
 def demo_zone_mask(frame_hw=FRAME_HW):
