@@ -9,13 +9,16 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
 
 1. holds each kernel against its plain PyTorch version at its path's
    shapes (fixed_point_suppress, pallas_suppress and int8_matmul_requant
-   bit for bit; fused_inverted_residual within a stated tolerance) and
-   times both with CUDA events;
+   bit for bit; fused_inverted_residual within a stated tolerance), times
+   both with CUDA events, times cuDNN's three-convolution block beside
+   fused_inverted_residual at each of its 12 shapes, and works out each
+   kernel's bound (the least time the card could take for its work);
 2. drives the detection main path (ssd_mobilenet_v2 at 300x300, bf16,
    nms fused_exact, fused blocks, device filters) through
    TorchDetectorBackend inside an ObjectDetector fed from FrameBuffers of
    1920x1080 frames, checks what it wrote and that both of its kernels
-   ran, and holds the step's raw outputs against the f32 plain model;
+   ran (12 fused_inverted_residual launches a forward), and holds the
+   step's raw outputs against the f32 plain model;
    then the int8 path the same way (WATSOR_QUANTIZE=int8_full,
    WATSOR_INT8_POINTWISE=pallas, calibrated on seeded frames, nms exact),
    with 38 int8_matmul_requant launches a forward and the raw outputs'
@@ -24,7 +27,8 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    to flow through /metrics, once on the main path and once on the int8
    path with ``nms: exact``;
 
-and last checks that nothing of JAX was imported on the way. It uses one
+and last checks that nothing of JAX, and nothing of the JAX package
+``watsor_tpu``, was imported on the way. It uses one
 card, the first visible one. Any failed phase makes the script exit
 non-zero without the final line. Weights are random, from a fixed seed.
 Output: versions, the card, build time, per-phase lines, a JSON line of
@@ -63,6 +67,12 @@ MODEL_REL_TOL = 5e-2
 INT8_MIN_COSINE = 0.95
 # kernel-4 launches in one int8 forward: its 38 pointwise units
 INT8_CALLS = 38
+# kernel-2 launches in one forward of the fused walk: its 12 blocks
+FUSED_CALLS = 12
+# the card's peaks for a kernel's bound (one H100 SXM at 700 W: NVIDIA's
+# data sheet, dense): device memory bytes/s and operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
 
 
 def log(*args):
@@ -87,19 +97,42 @@ def time_ms(fn, reps=7, inner=10):
     return statistics.median(times)
 
 
+class Bound:
+    """The least time the card could take for some work: the bytes moved
+    once over the memory rate against the operations over the peak rate of
+    their type (each type on its own units), the larger of the two."""
+
+    def __init__(self):
+        self.bytes_ms = 0.0
+        self.ops_ms = 0.0
+
+    def add(self, nbytes, **ops):
+        """One call: ``nbytes`` read or written once, ``ops`` counts by
+        type (bf16, f32, int8). Calls add up."""
+        self.bytes_ms += 1e3 * nbytes / HBM_BYTES_S
+        self.ops_ms += max([1e3 * n / PEAK_OPS_S[kind]
+                            for kind, n in ops.items()] + [0.0])
+        return self
+
+    def update(self, entry):
+        entry['bound_ms'] = max(self.bytes_ms, self.ops_ms)
+        entry['bound_by'] = 'bytes' if self.bytes_ms >= self.ops_ms \
+            else 'operations'
+
+
 def phase_kernels(device, results):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     from watsor_tpu_torch.ops import fused_block, nms_fixed_point
     from watsor_tpu_torch.ops.boxes import iou_matrix
-    from watsor_tpu_torch.workload import FUSED_SHAPES, WATCHED
+    from watsor_tpu_torch.workload import FUSED_SHAPES, WATCHED, cudnn_block
 
     rng = np.random.default_rng(0)
     M = 128
     entry = {'name': 'fixed_point_suppress', 'route': 'cuda',
              'source': 'watsor_tpu_torch/csrc/nms_fixed_point.cu',
              'replaces': 'watsor_tpu/ops/nms_pallas.py:158',
-             'max_abs_err': 0.0}
+             'max_abs_err': 0.0, 'library_ms': None}
     for C in (2, 90):
         # scores on a 1/64 grid: many exact ties across candidates
         s = np.floor(rng.uniform(0, 1, (BATCH, C, M)) * 64) / 64
@@ -125,12 +158,18 @@ def phase_kernels(device, results):
                 BATCH, C, M, int(got.sum()), ms, plain_ms))
         if C == len(WATCHED):            # the main path's shape
             entry.update(ms=ms, plain_ms=plain_ms)
+            # scores and IoU in, keep bits out; each of the M greedy steps
+            # of each class scans M candidates twice (argmax, suppression)
+            Bound().add(4 * (scores.numel() + iou.numel()) + got.numel(),
+                        f32=2 * BATCH * C * M * M).update(entry)
     results.append(entry)
 
     entry = {'name': 'fused_inverted_residual', 'route': 'cuda',
              'source': 'watsor_tpu_torch/csrc/fused_block.cu',
              'replaces': 'watsor_tpu/ops/fused_block.py:32',
-             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
+             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
+             'library_ms': 0.0}
+    roof = Bound()
     for H, C_in, E, C_out in FUSED_SHAPES:
         def rand(shape, scale, dtype):
             return torch.tensor(rng.normal(0, scale, shape), dtype=dtype,
@@ -159,13 +198,30 @@ def phase_kernels(device, results):
             x, *args, residual=residual))
         plain_ms = time_ms(lambda: fused_block.fused_inverted_residual_plain(
             x, *args, residual=residual))
+        library_ms = time_ms(cudnn_block(x, *args, residual))
+        # x in and out once, bf16 weights, f32 biases; the 1x1 products on
+        # the bf16 tensor cores, the depthwise in f32 on the CUDA cores
+        pixels = BATCH * H * H
+        work = (2 * pixels * (C_in + C_out) + 2 * E * (C_in + 9 + C_out) +
+                4 * (2 * E + C_out),
+                {'bf16': 2 * pixels * E * (C_in + C_out),
+                 'f32': 2 * 9 * pixels * E})
+        one = Bound().add(work[0], **work[1])
+        roof.add(work[0], **work[1])
+        plan = fused_block.plan_launch(BATCH, H, H, C_in, E, C_out)
         log('phase1 fused_inverted_residual B={} {}x{} {}->{}->{}{}: '
-            'max err {:.3g}, kernel {:.4f} ms, plain {:.4f} ms'.format(
+            'max err {:.3g}, kernel {:.4f} ms, plain {:.4f} ms, cuDNN '
+            '{:.4f} ms, bound {:.4f} ms; plan rows {} cluster {} blocks '
+            '{} smem {}'.format(
                 BATCH, H, H, C_in, E, C_out, ' +res' if residual else '',
-                err, ms, plain_ms))
+                err, ms, plain_ms, library_ms,
+                max(one.bytes_ms, one.ops_ms), plan.rows, plan.cluster,
+                plan.blocks, plan.smem))
         entry['max_abs_err'] = max(entry['max_abs_err'], err)
         entry['ms'] += ms                # one forward's 12 blocks
         entry['plain_ms'] += plain_ms
+        entry['library_ms'] += library_ms
+    roof.update(entry)
     results.append(entry)
     phase_kernels_int8_path(device, results, rng)
 
@@ -181,7 +237,7 @@ def phase_kernels_int8_path(device, results, rng):
     entry = {'name': 'pallas_suppress', 'route': 'cuda',
              'source': 'watsor_tpu_torch/csrc/nms_suppress.cu',
              'replaces': 'watsor_tpu/ops/nms_pallas.py:98',
-             'max_abs_err': 0.0}
+             'max_abs_err': 0.0, 'library_ms': None}
     for C in (2, 90):
         # score-sorted candidates on a 1/64 grid: many exact ties
         s = -np.sort(-np.floor(rng.uniform(0, 1, (BATCH, C, K)) * 64) / 64,
@@ -207,12 +263,18 @@ def phase_kernels_int8_path(device, results, rng):
                 BATCH, C, K, int((got > 0).sum()), ms, plain_ms))
         if C == len(WATCHED):            # the int8 path's shape
             entry.update(ms=ms, plain_ms=plain_ms)
+            # boxes and scores in, scores out; one IoU (about 12 f32
+            # operations) for each of the K(K-1)/2 pairs of each class
+            Bound().add(4 * (boxes.numel() + 2 * scores.numel()),
+                        f32=12 * BATCH * C * K * (K - 1) // 2).update(entry)
     results.append(entry)
 
     entry = {'name': 'int8_matmul_requant', 'route': 'cuda',
              'source': 'watsor_tpu_torch/csrc/int8_matmul.cu',
              'replaces': 'watsor_tpu/ops/int8_matmul.py:111',
-             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
+             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
+             'library_ms': None}
+    roof = Bound()
     calls = collections.Counter(int8_pointwise_calls(BATCH))
     for (M, K, N, quantize, relu6), n in calls.items():
         x = torch.tensor(rng.integers(-127, 128, (M, K)), dtype=torch.int8,
@@ -248,9 +310,14 @@ def phase_kernels_int8_path(device, results, rng):
         entry['max_abs_err'] = max(entry['max_abs_err'], err)
         entry['ms'] += n * ms            # one forward's 38 calls
         entry['plain_ms'] += n * plain_ms
+        # int8 x and w in, scale and bias in f32, int8 or f32 out
+        for _ in range(n):
+            roof.add(M * K + K * N + 8 * N + M * N * (1 if quantize else 4),
+                     int8=2 * M * K * N)
     if sum(calls.values()) != INT8_CALLS:
         raise AssertionError('{} pointwise calls a forward'.format(
             sum(calls.values())))
+    roof.update(entry)
     results.append(entry)
 
 
@@ -263,8 +330,9 @@ def phase_pipeline(counters, build, label, n_rounds=24):
     import torch
     from watsor_tpu_torch.detection import (TorchDetectorBackend,
                                             create_object_detectors)
-    from watsor_tpu_torch.host import (FrameBuffer, Payload, State,
-                                       balanced_queue_group)
+    from watsor_tpu_torch.runtime.channel import balanced_queue_group
+    from watsor_tpu_torch.runtime.frames import FrameBuffer, State
+    from watsor_tpu_torch.runtime.tasks import Payload
     from watsor_tpu_torch.models.zoo import MODEL_REGISTRY
     from watsor_tpu_torch.workload import (FRAME_HW, MODEL, camera_filters,
                                            watched_labels)
@@ -521,8 +589,11 @@ def phase_app(label, env, nms=None, deadline_s=600):
 
 
 def _jax_modules():
+    """Modules of JAX, and of the JAX package, that this process imported
+    (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
     return sorted(name for name in sys.modules
-                  if name.split('.')[0] in ('jax', 'jaxlib', 'flax'))
+                  if name.split('.')[0] in ('jax', 'jaxlib', 'flax',
+                                            'watsor_tpu'))
 
 
 def main():
@@ -584,11 +655,16 @@ def main():
     state = {'launches': {}}
 
     def main_path():
-        state['detector'], launches, _ = phase_pipeline(
+        state['detector'], launches, batches = phase_pipeline(
             (nms_fixed_point.fixed_point_suppress,
              fused_block.fused_inverted_residual),
             build_main_path_detector, 'phase2 pipeline (main path)')
         state['launches'].update(launches)
+        n = launches['fused_inverted_residual']
+        if n % FUSED_CALLS or n < FUSED_CALLS * batches:
+            raise AssertionError('{} fused_inverted_residual launches for {} '
+                                 'batches; {} a forward expected'.format(
+                                     n, batches, FUSED_CALLS))
 
     def int8_path():
         calib = calibration_frames()
@@ -646,7 +722,8 @@ def main():
     log(json.dumps({'kernels': [
         {key: entry[key] for key in ('name', 'route', 'source', 'replaces',
                                      'launches', 'max_abs_err', 'ms',
-                                     'plain_ms')} for entry in results]}))
+                                     'plain_ms', 'bound_ms', 'bound_by',
+                                     'library_ms')} for entry in results]}))
     count = torch.cuda.device_count()
     if count != 1:
         log('chip_smoke: {} cards visible, the run used one'.format(count))

@@ -1,8 +1,8 @@
 """TorchApplication end to end on the CPU, the port's counterpart of
 tests/test_app_real_backend.py: the real zoo-built model (the 3-class
 shapes geometry at 300x300), device filters, a synthetic camera, HTTP.
-Also: booting the port never imports jax, and the device pool refuses to
-fall back to the CPU on its own."""
+Also: booting the port imports neither jax nor the JAX package, and the
+device pool refuses to fall back to the CPU on its own."""
 
 import json
 import os
@@ -17,9 +17,9 @@ import urllib.request
 import pytest
 import torch
 
-from watsor_tpu.main import _parse_commandline_arguments
 from watsor_tpu_torch.detection.detector import resolve_device_pool
-from watsor_tpu_torch.main import TorchApplication
+from watsor_tpu_torch.main import (TorchApplication,
+                                   _parse_commandline_arguments)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,8 +152,7 @@ def test_int8_weights_refuse_fused_blocks(tmp_path, monkeypatch):
 
 _BOOT = r"""
 import sys, threading, time
-from watsor_tpu.main import _parse_commandline_arguments
-from watsor_tpu_torch.main import TorchApplication
+from watsor_tpu_torch.main import TorchApplication, _parse_commandline_arguments
 app = TorchApplication(_parse_commandline_arguments(sys.argv[1:]))
 thread = threading.Thread(target=app.run, daemon=True)
 thread.start()
@@ -166,6 +165,8 @@ app._stop_main.set()
 thread.join(30)
 assert app._detectors and app._detectors[0].fps.fps > 0, 'no detections'
 print('JAX_IMPORTED', 'jax' in sys.modules)
+print('JAX_PACKAGE_IMPORTED', sorted(
+    m for m in sys.modules if m.split('.')[0] == 'watsor_tpu'))
 """
 
 
@@ -178,6 +179,7 @@ def test_booting_the_port_never_imports_jax(tmp_path):
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'JAX_IMPORTED False' in proc.stdout, proc.stdout
+    assert 'JAX_PACKAGE_IMPORTED []' in proc.stdout, proc.stdout
 
 
 def test_device_pool_refuses_a_silent_cpu_fallback(monkeypatch):

@@ -1,6 +1,6 @@
 """The port's device filters and packed transport against the JAX
-package's, and TorchDetectorBackend driving the JAX package's
-ObjectDetector over real FrameBuffers on the CPU.
+package's, and TorchDetectorBackend driving the port's ObjectDetector over
+the port's FrameBuffers on the CPU.
 
 The filters compare integer-valued SATs and thresholds and the transport
 carries exact f32 values, so after ``_unpack_outputs`` both packages must
@@ -15,15 +15,17 @@ import torch
 
 import jax.numpy as jnp
 
-from watsor_tpu.config.coco import coco_label_index
-from watsor_tpu.detection.backend import _get_packers, _unpack_outputs
-from watsor_tpu.detection.detector import ObjectDetector
-from watsor_tpu.filters.mask import ZoneMask
+from watsor_tpu.detection.backend import _get_packers
+from watsor_tpu.detection.backend import _unpack_outputs as j_unpack
+from watsor_tpu.filters.mask import ZoneMask as JZoneMask
 from watsor_tpu.ops import filter_device as j_filter
-from watsor_tpu.runtime.frames import MAX_ZONES, FrameBuffer, State
-from watsor_tpu.runtime.tasks import Payload
+from watsor_tpu_torch.config.coco import coco_label_index
 from watsor_tpu_torch.detection.backend import (TorchDetectorBackend,
-                                                pack_outputs)
+                                                _unpack_outputs, pack_outputs)
+from watsor_tpu_torch.detection.detector import ObjectDetector
+from watsor_tpu_torch.filters.mask import ZoneMask
+from watsor_tpu_torch.runtime.frames import MAX_ZONES, FrameBuffer, State
+from watsor_tpu_torch.runtime.tasks import Payload
 from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
 from watsor_tpu_torch.ops import filter_device as t_filter
 
@@ -34,16 +36,18 @@ DETECT_B = [{'truck': {'confidence': 20, 'area': 2}},
             {'person': None}]
 
 
-def _zone_mask():
+def _zone_mask(mask_class=ZoneMask):
     alpha = np.zeros((120, 160), np.uint8)
     alpha[5:60, 5:80] = 255
     alpha[60:115, 70:155] = 255
-    return ZoneMask(alpha, (120, 160, 3))
+    return mask_class(alpha, (120, 160, 3))
 
 
 def _camera_tables(module):
+    """Each package's tables from its own ZoneMask."""
+    mask_class = JZoneMask if module is j_filter else ZoneMask
     out = {}
-    for name, detect, mask in (('a', DETECT_A, _zone_mask()),
+    for name, detect, mask in (('a', DETECT_A, _zone_mask(mask_class)),
                                ('b', DETECT_B, None)):
         conf, area = module.threshold_tables(detect)
         zs, za = module.zone_tables(mask, detect)
@@ -89,7 +93,7 @@ def test_filters_and_packed_transport_match_jax(seed):
     assert np.asarray(jz).any(), 'the zone bits must be exercised'
     np.testing.assert_array_equal(got, want)
     for g, w in zip(_unpack_outputs(got, 3, True, MAX_ZONES),
-                    _unpack_outputs(want, 3, True, MAX_ZONES)):
+                    j_unpack(want, 3, True, MAX_ZONES)):
         np.testing.assert_array_equal(g, w)
 
 

@@ -1,9 +1,9 @@
-"""The port's seam to the JAX package, the workload chip_smoke.py and
-profile_step drive, and chip_smoke.py's refusal to report without a card.
+"""The port stands alone, the workload chip_smoke.py and profile_step
+drive, and chip_smoke.py's refusal to report without a card.
 
-chip_smoke.py and the port must reach the JAX package only through
-watsor_tpu_torch/host.py (its JAX-free host layers) and the Application
-class that watsor_tpu_torch/main.py subclasses."""
+Neither chip_smoke.py nor any module of the port imports JAX or anything
+of the JAX package ``watsor_tpu``: the port keeps its own copy of the host
+layers."""
 
 import ast
 import json
@@ -20,13 +20,10 @@ from watsor_tpu_torch import workload
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'watsor_tpu_torch')
-# module -> what it may import from the JAX package
-SEAM = {'watsor_tpu_torch/host.py': None,
-        'watsor_tpu_torch/main.py': {'watsor_tpu.main'}}
 
 
-def _jax_package_imports(path):
-    tree = ast.parse(open(path).read(), path)
+def _jax_package_imports(path, text=None):
+    tree = ast.parse(open(path).read() if text is None else text, path)
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module:
@@ -47,11 +44,20 @@ def _sources():
 
 @pytest.mark.parametrize('source', sorted(_sources()))
 def test_only_the_host_seam_reaches_the_jax_package(source):
-    found = _jax_package_imports(os.path.join(ROOT, source))
-    assert not {n for n in found if n.split('.')[0] != 'watsor_tpu'}, found
-    allowed = SEAM.get(source, set())
-    if allowed is not None:
-        assert found <= allowed, found
+    """No import of jax, jaxlib, flax, ``watsor_tpu`` or any of its
+    submodules, at the top of a module or inside a function."""
+    assert not _jax_package_imports(os.path.join(ROOT, source))
+
+
+def test_the_import_scan_sees_the_jax_package():
+    """The scan above finds the package, its submodules and lazy imports,
+    and leaves the port's own modules alone."""
+    tree = ('import watsor_tpu\nfrom watsor_tpu.runtime import frames\n'
+            'def f():\n    import watsor_tpu.main as m\n'
+            'from watsor_tpu_torch.config import parse\n')
+    path = os.path.join(os.path.dirname(__file__), '_scan_probe.py')
+    assert _jax_package_imports(path, tree) == {
+        'watsor_tpu', 'watsor_tpu.runtime', 'watsor_tpu.main'}
 
 
 def test_camera_filters_put_the_demo_mask_on_the_first_camera():

@@ -40,23 +40,23 @@ def _nvcc():
     return found
 
 
-def _library_path(name, flags):
-    """Where ``csrc/<name>.cu`` builds to for its current source."""
-    source = os.path.join(CSRC_DIR, name + '.cu')
+def _library_path(name, source):
+    """Where ``source`` builds to for its current text."""
     with open(source, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
+        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, '{}-{}.so'.format(
         name, digest.hexdigest()[:16]))
 
 
-def load(name, signatures, defines=()):
+def load(name, signatures, source=None):
     """The ctypes library of ``csrc/<name>.cu``, built if not yet built.
     ``signatures`` maps each C entry point to its argument types; every
-    entry point returns a CUDA error code. ``defines`` (``'NAME=value'``
-    strings) build a variant beside the default one, for A/B runs. Builds
-    of different libraries may run at once, from different threads."""
-    flags = NVCC_FLAGS + tuple('-D' + d for d in defines)
-    key = (name, flags)
+    entry point returns a CUDA error code. ``source`` builds another file
+    in its place (another tree's version of the kernel, for A/B runs).
+    Builds of different libraries may run at once, from different
+    threads."""
+    source = os.path.abspath(source or os.path.join(CSRC_DIR, name + '.cu'))
+    key = (name, source)
     with _lock:
         lib = _libs.get(key)
         if lib is not None:
@@ -67,13 +67,12 @@ def load(name, signatures, defines=()):
             lib = _libs.get(key)
         if lib is not None:
             return lib
-        path = _library_path(name, flags)
+        path = _library_path(name, source)
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = '{}.{}.{}.tmp'.format(path, os.getpid(),
                                         threading.get_ident())
-            source = os.path.join(CSRC_DIR, name + '.cu')
-            proc = subprocess.run([_nvcc(), *flags, '-o', tmp, source],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, source],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError('nvcc failed for {}:\n{}{}'.format(

@@ -7,23 +7,112 @@ staging, detect, per-camera device filters, and packing into one f32
 row N carries ``valid`` in col 0). ``dispatch`` returns as soon as the
 step is queued; ``resolve`` waits on the step's event and makes the one
 D2H copy. The host-side helpers (buckets, unpacking, the exact zone
-refinement) are the JAX package's own, through ``watsor_tpu_torch.host``.
+refinement) and the ``DetectorBackend`` protocol are copied from
+watsor_tpu/detection/backend.py:25-55,98-118,247-280.
 """
 
 import contextlib
+import logging
 import threading
 from time import perf_counter
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from watsor_tpu_torch.host import (MAX_ZONES, DetectorBackend, _bucket,
-                                   _min_bucket_env, _refine_zones,
-                                   _unpack_outputs)
 from watsor_tpu_torch.ops.filter_device import apply_filters_device_indexed
+from watsor_tpu_torch.runtime.frames import MAX_ZONES
+
+_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 # the zone bitmask rides in f32, exact only up to 24 bits
 _MAX_ZONE_BITS = 24
+assert MAX_ZONES <= _MAX_ZONE_BITS, \
+    'packed zone bitmask is f32-exact only up to 24 bits'
+
+
+def _bucket(n: int) -> int:
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return ((n + 31) // 32) * 32
+
+
+def _min_bucket_env() -> int:
+    """Parse WATSOR_MIN_BUCKET with the same warn-and-fall-back posture as
+    resolve_device_pool: a malformed value ('auto', '1.5') must not crash
+    detector startup."""
+    import os
+
+    raw = os.environ.get('WATSOR_MIN_BUCKET', '') or ''
+    if not raw.strip():
+        return 1
+    try:
+        return int(raw)
+    except ValueError:
+        logging.getLogger('watsor_tpu.detector').warning(
+            'Ignoring malformed WATSOR_MIN_BUCKET=%r (want an integer); '
+            'using 1', raw)
+        return 1
+
+
+def _refine_zones(zone_refiners, senders, boxes, scores, classes, valid,
+                  zones_hit):
+    """Exact full-res host zone pass over the device-filtered survivors
+    (ops/filter_device.ZoneRefiner); the device test over-approximates so
+    this only ever REMOVES boundary-band false keeps. Mutates the sliced
+    result arrays in place."""
+    for i, sender in enumerate(senders[:len(boxes)]):
+        refiner = zone_refiners.get(sender)
+        if refiner is None:
+            continue                       # no mask: zones disabled
+        rows = np.nonzero(scores[i] > 0.0)[0]
+        if not len(rows):
+            continue
+        keep, hit = refiner(boxes[i, rows], classes[i, rows])
+        zones_hit[i, rows] = hit[:, :zones_hit.shape[2]]
+        drop = rows[~keep]
+        if len(drop):
+            scores[i, drop] = 0.0
+            classes[i, drop] = 0
+            zones_hit[i, drop] = False
+            valid[i] -= len(drop)
+
+
+def _unpack_outputs(packed, n, with_zones, max_zones):
+    """Host-side split of the packed fetch back into the detect_batch
+    contract arrays (sliced to the real batch n)."""
+    body = packed[:n, :-1, :]
+    boxes = np.ascontiguousarray(body[..., 0:4])
+    scores = np.ascontiguousarray(body[..., 4])
+    classes = body[..., 5].astype(np.int32)
+    valid = packed[:n, -1, 0].astype(np.int32)
+    if not with_zones:
+        return boxes, scores, classes, valid, None
+    zbits = body[..., 6].astype(np.int64)
+    zones_hit = (zbits[..., None] >> np.arange(max_zones)) & 1 != 0
+    return boxes, scores, classes, valid, zones_hit
+
+
+class DetectorBackend:
+    """Protocol: batched uint8 frames in, padded detection arrays out."""
+
+    device_name = 'unknown'
+    input_hw: Tuple[int, int] = (300, 300)
+
+    def detect_batch(self, images_u8: np.ndarray, senders=None):
+        """images_u8: [B, H, W, 3] -> (boxes [B,N,4] normalized float32,
+        scores [B,N] float32, classes [B,N] int32 1-based, valid [B] int32,
+        device_ms float[, zones_hit [B,N,Z] bool when the backend filters
+        on device]). ``senders`` optionally names the camera of each row so
+        per-camera filter tables can apply."""
+        raise NotImplementedError
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
 class _FilterTableStore:

@@ -1,33 +1,74 @@
-"""The port's composition root: the JAX package's ``Application`` with its
-device seams replaced.
+"""The port's composition root: ``TorchApplication``, the HTTP API and
+the CLI.
 
     python -m watsor_tpu_torch.main -c config/config.yaml [--model NAME]
 
-``TorchApplication`` reuses the whole host graph (decoders, balanced
-queue, sieve, effects, snapshot, MQTT, HTTP) and overrides only what
-touches JAX: the detector build, the device-filter tables, the device
-pool, the platform pin and discovery probe in ``run``, and the profiler
-route. Knobs honoured as in the JAX package: ``TRT_FLOAT_PRECISION=32|16``,
-``WATSOR_FUSED_BLOCKS=1``, ``WATSOR_QUANTIZE=int8|int8_full`` (with
-``WATSOR_CALIB_FILE`` and ``WATSOR_INT8_POINTWISE=conv|dot|pallas``),
-``WATSOR_DEVICE_FILTERS=0``, ``WATSOR_DEVICE_POOL``. Knobs whose paths are
-not ported yet raise.
+Copied from watsor_tpu/main.py (``Application``,
+``_parse_commandline_arguments``, the HTTP routes and the lifecycle), with
+its JAX branches replaced by the PyTorch detection path: the detector
+build, the device pool, the profiler route (501) and ``run`` without the
+platform pin and discovery probe. The host graph is the port's own copy of
+the JAX package's (decoders, balanced queue, sieve, effects, snapshot,
+MQTT, HTTP). Knobs honoured as in the JAX package:
+``TRT_FLOAT_PRECISION=32|16``, ``WATSOR_FUSED_BLOCKS=1``,
+``WATSOR_QUANTIZE=int8|int8_full`` (with ``WATSOR_CALIB_FILE`` and
+``WATSOR_INT8_POINTWISE=conv|dot|pallas``), ``WATSOR_DEVICE_FILTERS=0``,
+``WATSOR_DEVICE_POOL``. Knobs whose paths are not ported yet raise.
 """
 
+import argparse
+import base64
+import hmac
 import json
 import logging
 import os
+import signal
 import threading
+from collections import namedtuple
+from queue import Queue
 
 import torch
 
-from watsor_tpu.main import Application, _parse_commandline_arguments
-from watsor_tpu_torch.host import (balanced_queue_group, coco_label_index,
-                                   init_logging)
+from watsor_tpu_torch.config import parse, validate, normalize
+from watsor_tpu_torch.config.coco import coco_label_index
+from watsor_tpu_torch.runtime.frames import FrameBuffer
+from watsor_tpu_torch.runtime.channel import balanced_queue_group
+from watsor_tpu_torch.runtime.logs import init_logging
+from watsor_tpu_torch.runtime.meters import RateLimiter
+from watsor_tpu_torch.runtime.watchdog import WatchDog
 
 _LOGGER = logging.getLogger('watsor_tpu_torch.main')
 
 _NOT_PORTED = 'is not ported to watsor_tpu_torch yet (ROADMAP.md, queue A)'
+
+Camera = namedtuple('Camera', [
+    'name', 'config', 'buffer_in', 'buffer_out', 'decoder', 'sieve',
+    'visual_effects', 'encoder', 'snapshot', 'mqtt', 'rate_limiter'])
+
+
+def _parse_commandline_arguments(argv=None):
+    parser = argparse.ArgumentParser(
+        description='watsor-tpu: TPU-native object detection for video '
+                    'surveillance')
+    parser.add_argument('-c', '--config', required=True,
+                        help='configuration YAML file')
+    parser.add_argument('-m', '--model-path', default=os.environ.get(
+        'MODEL_PATH', '/usr/share/watsor/model'),
+        help='directory with detection model weights')
+    parser.add_argument('--model', default=os.environ.get('WATSOR_MODEL'),
+                        help='detection model from the zoo '
+                             '(ssd_mobilenet_v2, efficientdet_lite0, ...)')
+    parser.add_argument('--log-path', default=os.environ.get('LOG_PATH'),
+                        help='directory for rotated log files')
+    parser.add_argument('--log-level',
+                        default=os.environ.get('LOG_LEVEL', 'INFO'),
+                        help='logging level')
+    parser.add_argument('--check-config', action='store_true',
+                        help='validate the configuration (schema, secrets, '
+                             'masks, model name, decoder argv translation) '
+                             'and exit 0/1 without starting — for CI and '
+                             'k8s init containers')
+    return parser.parse_args(argv)
 
 
 def detector_spec_from_config(config, args):
@@ -48,49 +89,268 @@ def detector_spec_from_config(config, args):
     return model_name, watched or None, config.get('nms')
 
 
-class TorchApplication(Application):
-    """``Application`` on the PyTorch detection path."""
+def _prometheus_metrics(data):
+    """Render the /metrics JSON (reference shape) as Prometheus text
+    exposition format — a watsor-tpu extension (`?format=prometheus`)
+    for scrape-based monitoring; the JSON default stays byte-compatible
+    with the reference's consumers (main.py:221-253)."""
+    lines = []
+
+    def escape(value):
+        # label-value escaping per the exposition format: backslash,
+        # double quote, newline
+        return str(value).replace('\\', '\\\\').replace('"', '\\"') \
+            .replace('\n', '\\n')
+
+    def gauge(name, help_text, samples):
+        lines.append('# HELP {} {}'.format(name, help_text))
+        lines.append('# TYPE {} gauge'.format(name))
+        for labels, value in samples:
+            label_str = ','.join('{}="{}"'.format(k, escape(v))
+                                 for k, v in labels.items())
+            lines.append('{}{{{}}} {}'.format(name, label_str, value))
+
+    cameras = data.get('cameras', [])
+    gauge('watsor_camera_fps', 'Frames per second per pipeline stage',
+          [({'camera': c['name'], 'stage': stage}, value)
+           for c in cameras for stage, value in c['fps'].items()])
+    for field, help_text in (('buffer_in', 'Input frame buffer fullness, '
+                                           'percent'),
+                             ('buffer_out', 'Output frame buffer '
+                                            'fullness, percent')):
+        gauge('watsor_camera_{}_percent'.format(field), help_text,
+              [({'camera': c['name']}, c[field]) for c in cameras])
+    gauge('watsor_camera_latency_ms',
+          'Frame capture to stage completion latency, milliseconds',
+          [({'camera': c['name'], 'stage': stage, 'quantile': q}, value)
+           for c in cameras
+           for stage, percentiles in c.get('latency_ms', {}).items()
+           for q, value in percentiles.items()])
+
+    detectors = data.get('detectors', [])
+    gauge('watsor_detector_fps', 'Detector throughput, frames per second',
+          [({'detector': d['name']}, d['fps']) for d in detectors])
+    gauge('watsor_detector_inference_ms',
+          'Inference time per frame, milliseconds',
+          [({'detector': d['name']}, d['inference_time'])
+           for d in detectors])
+    gauge('watsor_detector_latency_ms',
+          'Frame capture to detections-in-header latency, milliseconds',
+          [({'detector': d['name'], 'quantile': q},
+            d['latency_ms_' + q]) for d in detectors
+           for q in ('p50', 'p95')])
+    return '\n'.join(lines) + '\n'
+
+
+class TorchApplication:
+    """Builds and runs the whole graph from a validated config, with
+    detection on the PyTorch path."""
+
+    DETECT_SIZE = 300  # fallback detect-plane size (overridden per model)
+
+    def __init__(self, args=None, backend_factory=None):
+        self._args = args or _parse_commandline_arguments()
+        self._stop_main = threading.Event()
+        self._cameras = []
+        self._detectors = []
+        self._watchdog = WatchDog()
+        self._http_server = None
+        self._http_config = {}
+        self._jpeg_caches = {}
+        self._camera_tables = {}
+        self._zone_refiners = {}
+        # injectable for tests: device -> DetectorBackend (the reference's
+        # analog is swapping in the analytic shape detector, SURVEY.md §4)
+        self._backend_factory = backend_factory
+
+    # -- construction ------------------------------------------------------
+
+    def _read_config(self):
+        config = normalize(validate(parse(self._args.config)),
+                           os.path.dirname(os.path.abspath(self._args.config)))
+        return config
 
     @property
     def _device_filters(self):
-        # The base class builds JAX device-filter tables where this is
-        # true; this class builds its own in _create_filters instead.
-        return False
-
-    @property
-    def _torch_device_filters(self):
+        """Confidence/area/zone filtering fused into the device step.
+        WATSOR_DEVICE_FILTERS=0 reverts to the host cascade (exact
+        reference semantics; zones are evaluated at full resolution instead
+        of the device's 96x96 grid). Only applies to the PyTorch backend —
+        injected test backends always use the host cascade."""
         return os.environ.get('WATSOR_DEVICE_FILTERS', '1') != '0' and \
             self._backend_factory is None
 
     def _create_filters(self, camera_name, camera_config, rate_limiter):
-        track, zone_mask = super()._create_filters(camera_name,
-                                                   camera_config,
-                                                   rate_limiter)
-        if not self._torch_device_filters:
-            return track, zone_mask
-        from watsor_tpu_torch.host import TrackFilter
-        from watsor_tpu_torch.ops.filter_device import (ZoneRefiner,
-                                                        threshold_tables,
-                                                        zone_tables)
-        detect = camera_config['detect']
-        conf, area = threshold_tables(detect)
-        zs, za = zone_tables(zone_mask, detect)
-        self._camera_tables[camera_name] = (conf, area, zs, za)
-        # the exact full-resolution zone pass over the device survivors;
-        # maskless cameras get no entry
-        if zone_mask is not None:
-            self._zone_refiners[camera_name] = ZoneRefiner(zone_mask, detect)
-        # the cascade runs on the device; the sieve keeps only the tracker
-        return TrackFilter([]), zone_mask
+        from watsor_tpu_torch.filters import (AreaFilter, ConfidenceFilter,
+                                              MaskFilter, TrackFilter,
+                                              ZoneMask)
+        detect_config = camera_config['detect']
+        chain = [ConfidenceFilter(detect_config), AreaFilter(detect_config)]
+        zone_mask = None
+        mask_path = camera_config.get('mask')
+        if mask_path:
+            import cv2
+            from watsor_tpu_torch.filters.mask import get_alpha_channel
+            image = cv2.imread(mask_path, cv2.IMREAD_UNCHANGED)
+            alpha = get_alpha_channel(image)
+            zone_mask = ZoneMask(alpha, (camera_config['height'],
+                                         camera_config['width']))
+            chain.append(MaskFilter(detect_config, zone_mask))
+        if self._device_filters:
+            # cascade runs on device inside the detection step; the sieve
+            # keeps only the (stateful, host-side) tracker
+            chain = []
+        track = TrackFilter(chain)
+        return track, zone_mask
 
     def _create_effects(self, zone_mask):
-        # the base class defaults device render on under WATSOR_FLEET=1
+        from watsor_tpu_torch.output.effects import (
+            BlendEffect, CopyHeaderEffect, CopyImageEffect, DrawEffect,
+            DrawEffectWithContours)
+        if zone_mask is not None:
+            return [CopyHeaderEffect(), CopyImageEffect(),
+                    BlendEffect(zone_mask), DrawEffectWithContours(zone_mask)]
+        # the JAX package defaults device render on under WATSOR_FLEET=1
         render = os.environ.get('WATSOR_DEVICE_RENDER') or \
             ('1' if os.environ.get('WATSOR_FLEET') == '1' else '0')
-        if render == '1' and zone_mask is None:
+        if render == '1':
             raise SystemExit('device overlay render (WATSOR_DEVICE_RENDER, '
                              'WATSOR_FLEET) ' + _NOT_PORTED)
-        return super()._create_effects(zone_mask)
+        return [CopyHeaderEffect(), CopyImageEffect(), DrawEffect()]
+
+    def _create_decoder(self, camera_name, camera_config, frame_queue,
+                        buffer_in, rate_limiter):
+        url = camera_config['input']
+        if url.startswith('synthetic://'):
+            from watsor_tpu_torch.io.synthetic import make_synthetic_decoder
+            return make_synthetic_decoder(url, camera_name, frame_queue,
+                                          buffer_in,
+                                          rate_limiter=rate_limiter)
+        from watsor_tpu_torch.io.video import (VideoDecoder,
+                                               decoder_args_from_argv)
+        args = decoder_args_from_argv(camera_config['ffmpeg']['decoder'])
+        if args.unknown:
+            if os.environ.get('WATSOR_FFMPEG_FALLBACK', '') == '1':
+                # compat escape hatch: flags the native translation can't
+                # honor run through a REAL ffmpeg subprocess with the
+                # user's verbatim argv (the reference's own mechanism,
+                # stream/ffmpeg.py:41-42) — any ffmpeg option/device/
+                # filter then behaves exactly as upstream
+                _LOGGER.warning(
+                    'Camera %s: ffmpeg decoder flags not translated by '
+                    'the native runtime (%s); WATSOR_FFMPEG_FALLBACK=1 — '
+                    'spawning a real ffmpeg subprocess with the verbatim '
+                    'argv', camera_name, ' '.join(args.unknown))
+                from watsor_tpu_torch.io.video import FallbackVideoDecoder
+                return FallbackVideoDecoder(
+                    camera_name, frame_queue, buffer_in, url,
+                    argv=camera_config['ffmpeg']['decoder'],
+                    rate_limiter=rate_limiter)
+            _LOGGER.warning(
+                'Camera %s: ffmpeg decoder flags not translated by the '
+                'native runtime (ignored): %s (set WATSOR_FFMPEG_FALLBACK'
+                '=1 to run them through a real ffmpeg subprocess)',
+                camera_name, ' '.join(args.unknown))
+        return VideoDecoder(camera_name, frame_queue, buffer_in, url,
+                            options=args.options,
+                            realtime=args.realtime or None,
+                            input_format=args.input_format,
+                            hwaccel=args.hwaccel,
+                            hwaccel_device=args.hwaccel_device,
+                            filter_fps=args.filter_fps,
+                            rate_limiter=rate_limiter)
+
+    def _create_encoder(self, camera_name, camera_config, buffer_out,
+                        visual_effects):
+        if 'encoder' not in camera_config.get('ffmpeg', {}):
+            return None
+        from watsor_tpu_torch.io.video import (VideoEncoder,
+                                               encoder_args_from_argv)
+        args = encoder_args_from_argv(camera_config['ffmpeg']['encoder'])
+        if args.unknown:
+            _LOGGER.warning(
+                'Camera %s: ffmpeg encoder flags not translated by the '
+                'native runtime (ignored): %s', camera_name,
+                ' '.join(args.unknown))
+        output_path = camera_config.get('output')
+        encoder_queue = Queue(1)
+        encoder = VideoEncoder(
+            camera_name + '-encoder', encoder_queue, buffer_out,
+            camera_config['width'], camera_config['height'],
+            fps=args.fps or 30.0,
+            output_path=output_path, broadcast=output_path is None,
+            codec=args.codec, bit_rate=args.bit_rate, options=args.options,
+            input_fps=args.input_fps, cfr=args.cfr,
+            fmt=args.format if output_path else None,
+            drawtext=args.drawtext)
+        visual_effects.subscribe(encoder_queue)
+        return encoder
+
+    def _class_names(self, camera_config):
+        return [next(iter(entry)) for entry in camera_config['detect']]
+
+    def _setup_camera(self, camera_name, camera_config, frame_queue,
+                      mqtt_config):
+        from watsor_tpu_torch.filters import DetectionSieve
+        from watsor_tpu_torch.output.snapshot import Snapshot
+        from watsor_tpu_torch.output.visual import VisualEffects
+
+        w, h = camera_config['width'], camera_config['height']
+        detect_hw = (self.DETECT_SIZE, self.DETECT_SIZE)
+        buffer_in = FrameBuffer(10, w, h, detect_hw=detect_hw)
+        buffer_out = FrameBuffer(10, w, h)
+
+        rate_limiter = RateLimiter()
+        decoder = self._create_decoder(camera_name, camera_config,
+                                       frame_queue, buffer_in, rate_limiter)
+
+        track, zone_mask = self._create_filters(camera_name, camera_config,
+                                                rate_limiter)
+        if self._device_filters:
+            from watsor_tpu_torch.ops.filter_device import threshold_tables, \
+                zone_tables, ZoneRefiner
+            conf, area = threshold_tables(camera_config['detect'])
+            zs, za = zone_tables(zone_mask, camera_config['detect'])
+            self._camera_tables[camera_name] = (conf, area, zs, za)
+            # exact full-res zone pass over the device survivors (the
+            # device grid over-approximates; this restores bit parity
+            # with the host cascade); maskless cameras get NO entry so an
+            # all-maskless deployment skips the refine branch entirely
+            if zone_mask is not None:
+                self._zone_refiners[camera_name] = ZoneRefiner(
+                    zone_mask, camera_config['detect'])
+        sieve_queue = Queue(1)
+        sieve = DetectionSieve(camera_name + '-sieve', sieve_queue, buffer_in,
+                               track, rate_limiter)
+        decoder.subscribe(sieve_queue)
+
+        effects_queue = Queue(1)
+        visual_effects = VisualEffects(
+            camera_name + '-effects', effects_queue, buffer_in, buffer_out,
+            self._create_effects(zone_mask))
+        sieve.subscribe(effects_queue)
+
+        encoder = self._create_encoder(camera_name, camera_config,
+                                       buffer_out, visual_effects)
+
+        snapshot_queue = Queue(1)
+        snapshot = Snapshot(camera_name + '-snapshot', snapshot_queue,
+                            buffer_in, self._class_names(camera_config),
+                            self._create_effects(zone_mask))
+        sieve.subscribe(snapshot_queue)
+
+        mqtt = None
+        if mqtt_config:
+            from watsor_tpu_torch.output.mqtt import MQTT
+            mqtt_queue = Queue(1)
+            mqtt = MQTT(camera_name + '-mqtt', camera_name, mqtt_queue,
+                        buffer_in, mqtt_config,
+                        self._class_names(camera_config), decoder)
+            sieve.subscribe(mqtt_queue)
+
+        return Camera(camera_name, camera_config, buffer_in, buffer_out,
+                      decoder, sieve, visual_effects, encoder, snapshot,
+                      mqtt, rate_limiter)
 
     def _detector_factory(self, config):
         """device -> Detector, for the configured model and knobs."""
@@ -202,10 +462,8 @@ class TorchApplication(Application):
                 mqtt_config))
 
         if backend_factory is None:
-            tables = self._camera_tables if self._torch_device_filters \
-                else None
-            refiners = self._zone_refiners if self._torch_device_filters \
-                else None
+            tables = self._camera_tables if self._device_filters else None
+            refiners = self._zone_refiners if self._device_filters else None
 
             def backend_factory(device):
                 return TorchDetectorBackend(make_detector(device), device,
@@ -216,14 +474,260 @@ class TorchApplication(Application):
         self._detectors = create_object_detectors(queues, buffers,
                                                   backend_factory)
 
+    # -- HTTP --------------------------------------------------------------
+
+    def _check_auth(self, environ):
+        username = self._http_config.get('username')
+        if not username:
+            return True
+        header = environ.get('HTTP_AUTHORIZATION', '')
+        if not header.startswith('Basic '):
+            return False
+        try:
+            decoded = base64.b64decode(header[6:]).decode()
+        except Exception:
+            return False
+        expected = '{}:{}'.format(username,
+                                  self._http_config.get('password', ''))
+        # constant-time compare — a plain == leaks the match prefix length
+        # through response timing
+        return hmac.compare_digest(decoded.encode(), expected.encode())
+
+    def _camera_by_name(self, name):
+        for camera in self._cameras:
+            if camera.name == name:
+                return camera
+        return None
+
+    def _metrics(self):
+        # JSON shape matches the reference consumer-for-consumer
+        # (upstream watsor/main.py:221-253): cameras is a LIST of
+        # {name, fps: {stage: value}, buffer_in, buffer_out} with
+        # encoder/mqtt fps present only when configured; detectors carry
+        # {name, fps, fps_max, inference_time}. The latency percentiles
+        # are watsor-tpu additions (extra keys are additive-compatible).
+        cameras = []
+        for c in self._cameras:
+            fps = {
+                'decoder': round(c.decoder.fps.fps, 1),
+                'sieve': round(c.sieve.fps.fps, 1),
+                'visual_effects': round(c.visual_effects.fps.fps, 1),
+                'snapshot': round(c.snapshot.fps.fps, 1),
+            }
+            if c.encoder is not None:
+                fps['encoder'] = round(c.encoder.fps.fps, 1)
+            if c.mqtt is not None:
+                fps['mqtt'] = round(c.mqtt.fps.fps, 1)
+            latency = {'sieve': {'p50': round(c.sieve.latency.p50, 1),
+                                 'p95': round(c.sieve.latency.p95, 1)}}
+            if c.encoder is not None:
+                latency['encoder'] = {
+                    'p50': round(c.encoder.latency.p50, 1),
+                    'p95': round(c.encoder.latency.p95, 1)}
+            if c.mqtt is not None:
+                latency['mqtt'] = {'p50': round(c.mqtt.latency.p50, 1),
+                                   'p95': round(c.mqtt.latency.p95, 1)}
+            cameras.append({
+                'name': c.name,
+                'fps': fps,
+                'buffer_in': round(c.buffer_in.fullness * 100),
+                'buffer_out': round(c.buffer_out.fullness * 100),
+                'latency_ms_p50': round(c.sieve.latency.p50, 1),
+                'latency_ms': latency,
+            })
+        detectors = []
+        for d in self._detectors:
+            inference_time = d.inference_time.value
+            detectors.append({
+                'name': d.device_name,
+                'fps': round(d.fps.fps, 1),
+                'fps_max': round(1000.0 / inference_time)
+                if inference_time else 0.0,
+                'inference_time': round(inference_time, 1),
+                # north-star metric: frame capture -> detections in header
+                'latency_ms_p50': round(d.latency.p50, 1),
+                'latency_ms_p95': round(d.latency.p95, 1),
+            })
+        return {'cameras': cameras, 'detectors': detectors}
+
+    def _home_page(self):
+        rows = []
+        for c in self._cameras:
+            links = ['<a href="/video/mjpeg/{0}">mjpeg</a>'.format(c.name)]
+            if c.encoder is not None and c.encoder.ts_ring is not None:
+                links.append(
+                    '<a href="/video/mpegts/{0}">mpegts</a>'.format(c.name))
+            for label in self._class_names(c.config):
+                links.append('<a href="/snapshot/{0}/{1}">{1}</a>'.format(
+                    c.name, label))
+            rows.append('<li><b>{}</b> {}</li>'.format(c.name,
+                                                       ' '.join(links)))
+        return ('<html><head><title>watsor-tpu</title></head><body>'
+                '<h1>watsor-tpu</h1><ul>{}</ul>'
+                '<p><a href="/metrics">metrics</a> '
+                '<a href="/health">health</a></p>'
+                '</body></html>').format(''.join(rows))
+
+    def _wsgi_app(self, environ, start_response):
+        from werkzeug.wrappers import Request, Response
+
+        request = Request(environ)
+        path = request.path
+
+        # every route is authenticated, /health included — the reference
+        # authenticates its whole surface (upstream watsor/main.py:
+        # 155-165); k8s-style probes can send credentials or auth can be
+        # left off entirely
+        if not self._check_auth(environ):
+            response = Response(
+                'Unauthorized', status=401,
+                headers={'WWW-Authenticate':
+                         'Basic realm="Access to Watsor"'})
+            return response(environ, start_response)
+
+        try:
+            if path == '/':
+                response = Response(self._home_page(), mimetype='text/html')
+            elif path == '/health':
+                response = Response('UP', mimetype='text/plain')
+            elif path == '/metrics':
+                # reference JSON shape by default; ?format=prometheus
+                # serves the same data in the Prometheus text exposition
+                # format (a watsor-tpu extension for scrape-based ops)
+                if request.args.get('format') == 'prometheus':
+                    response = Response(
+                        _prometheus_metrics(self._metrics()),
+                        mimetype='text/plain; version=0.0.4')
+                else:
+                    response = Response(
+                        json.dumps(self._metrics(), indent=4),
+                        mimetype='application/json')
+            elif path == '/profiler':
+                response = self._profiler_response(request)
+            elif path.startswith('/snapshot/'):
+                response = self._snapshot_response(path)
+            elif path.startswith('/video/mjpeg/'):
+                response = self._mjpeg_response(path, request)
+            elif path.startswith('/video/mpegts/'):
+                response = self._mpegts_response(path)
+            else:
+                response = Response('Not found', status=404)
+        except Exception:
+            _LOGGER.exception('HTTP handler error for %s', path)
+            response = Response('Internal error', status=500)
+        return response(environ, start_response)
+
     def _profiler_response(self, request):
         from werkzeug.wrappers import Response
         return Response(json.dumps({'error': 'the profiler route ' +
                                     _NOT_PORTED}),
                         status=501, mimetype='application/json')
 
+    def _snapshot_response(self, path):
+        from werkzeug.wrappers import Response
+        parts = path.strip('/').split('/')
+        if len(parts) != 3:
+            return Response('Not found', status=404)
+        camera = self._camera_by_name(parts[1])
+        if camera is None:
+            return Response('Unknown camera', status=404)
+        data = camera.snapshot.get(parts[2])
+        if data is None:
+            return Response('No snapshot yet', status=404)
+        return Response(data, mimetype='image/jpeg')
+
+    def _mjpeg_response(self, path, request=None):
+        from werkzeug.wrappers import Response
+        from watsor_tpu_torch.output.http_stream import (JpegCacheSet,
+                                                         MotionJpeg)
+        camera = self._camera_by_name(path.rsplit('/', 1)[-1])
+        if camera is None:
+            return Response('Unknown camera', status=404)
+        # viewer knobs (all optional; extensions over the reference's
+        # fixed source-rate source-resolution stream, output/video.py:118):
+        #   ?scale=N      serve at 1/N resolution (downscale fused into the
+        #                 persistent native encoder's swscale pass)
+        #   ?res=detect   serve the rendered output downscaled to the
+        #                 model's detection resolution (NOT the raw
+        #                 detect plane — overlays/effects are included)
+        #   ?fps=F        cap this viewer's delivery rate
+        #   ?quality=Q    JPEG quality 1-100 (default 80)
+        args = request.args if request is not None else {}
+        out_hw, max_fps, quality = None, None, 80
+        try:
+            src_h, src_w = camera.buffer_out.arena.shape[1:3]
+            if args.get('res') == 'detect':
+                if camera.buffer_in.detect_arena is None:
+                    return Response('Camera has no detection plane',
+                                    status=400)
+                out_hw = camera.buffer_in.detect_arena.shape[1:3]
+            elif 'scale' in args:
+                n = max(1, min(16, int(args['scale'])))
+                out_hw = (src_h // n, src_w // n)
+            if 'fps' in args:
+                max_fps = max(0.1, min(240.0, float(args['fps'])))
+            if 'quality' in args:
+                quality = max(1, min(100, int(args['quality'])))
+        except (TypeError, ValueError):
+            return Response('Bad query parameter', status=400)
+        # ONE JPEG cache per camera per (resolution, quality) variant,
+        # shared by all viewers of that variant: each frame is encoded at
+        # most once per variant regardless of viewer count (the reference's
+        # shared epoch-keyed cache, output/video.py:120-132)
+        cache = self._jpeg_caches.setdefault(
+            camera.name, JpegCacheSet()).get_cache(out_hw, quality)
+        stream = MotionJpeg(camera.name + '-mjpeg', camera.visual_effects,
+                            camera.buffer_out, jpeg_cache=cache,
+                            stop_event=self._stop_main, max_fps=max_fps)
+        response = Response(iter(stream), mimetype=stream.mime_type)
+        response.call_on_close(stream.close)
+        return response
+
+    def _mpegts_response(self, path):
+        from werkzeug.wrappers import Response
+        from watsor_tpu_torch.output.http_stream import MpegTS
+        camera = self._camera_by_name(path.rsplit('/', 1)[-1])
+        if camera is None:
+            return Response('Unknown camera', status=404)
+        if camera.encoder is None or camera.encoder.ts_ring is None:
+            return Response('No MPEG-TS broadcast configured', status=404)
+        stream = MpegTS(camera.name + '-mpegts', camera.encoder,
+                        stop_event=self._stop_main)
+        response = Response(iter(stream), mimetype=stream.mime_type)
+        response.call_on_close(stream.close)
+        return response
+
+    def _http_serve(self):
+        from werkzeug.serving import make_server
+        port = self._http_config.get('port', 8080)
+        self._http_server = make_server('0.0.0.0', port, self._wsgi_app,
+                                        threaded=True)
+        thread = threading.Thread(name='http', daemon=True,
+                                  target=self._http_server.serve_forever)
+        thread.start()
+        _LOGGER.info('HTTP server listening on port %d', port)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _all_tasks(self):
+        for c in self._cameras:
+            yield from filter(None, (c.sieve, c.visual_effects, c.snapshot,
+                                     c.encoder, c.mqtt, c.decoder))
+        yield from self._detectors
+
+    def _install_signal_handler(self):
+        def handler(signum, frame):
+            _LOGGER.info('Signal %d received, shutting down', signum)
+            self._stop_main.set()
+        try:
+            signal.signal(signal.SIGINT, handler)
+            signal.signal(signal.SIGTERM, handler)
+        except ValueError:
+            pass  # not the main thread (embedded/test usage)
+
     def run(self):
-        """``Application.run`` without the JAX platform pin and discovery
+        """Start HTTP, build the graph and serve until stopped. Unlike the
+        JAX package's ``run`` there is no platform pin and no discovery
         probe: the device pool decides where detection runs."""
         init_logging(self._args.log_level, self._args.log_path)
         self._install_signal_handler()
@@ -263,6 +767,17 @@ class TorchApplication(Application):
             self._stop_main.wait()
         finally:
             self._shutdown()
+
+    def _shutdown(self):
+        _LOGGER.info('Stopping...')
+        self._watchdog.join(5)
+        if self._http_server is not None:
+            self._http_server.shutdown()
+        for task in self._all_tasks():
+            task.terminate()
+        for task in self._all_tasks():
+            task.join(30)
+        _LOGGER.info('Stopped')
 
 
 def main(argv=None):

@@ -14,9 +14,10 @@ The numpy table builders are copies: their original module imports jax.
 import numpy as np
 import torch
 
-from watsor_tpu_torch.host import (COCO_CLASSES, DEFAULT_AREA,
-                                   DEFAULT_CONFIDENCE, MAX_ZONES,
-                                   iter_detect_entries)
+from watsor_tpu_torch.config.coco import (COCO_CLASSES, DEFAULT_AREA,
+                                          DEFAULT_CONFIDENCE,
+                                          iter_detect_entries)
+from watsor_tpu_torch.runtime.frames import MAX_ZONES
 
 ZONE_GRID = 96
 

@@ -1,7 +1,8 @@
 """Step profile of the port's main path on one CUDA card.
 
     python -m watsor_tpu_torch.profile_step [--path main|int8]
-                                            [--chunks 32,48,64]
+                                            [--min-blocks 132,264]
+                                            [--baseline OTHER_CHECKOUT]
                                             [--trace step_trace.json]
 
 Drives a workload of chip_smoke.py (``watsor_tpu_torch.workload``) at
@@ -21,9 +22,10 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
 - a torch.profiler window over 10 of the path's backend steps: wall time,
   the device's busy share (the union of its kernel and copy intervals),
   device events a step, and the kernels with the most device time;
-- main path: the 12 fused blocks as device time, the kernel at each
-  chunk width of ``--chunks`` (built with ``-DWT_FUSED_CHUNK``) against
-  the plain version; int8 path: the 38 int8_matmul_requant calls of one
+- main path: the 12 fused blocks as device time, the kernel with the
+  launch plan of each ``--min-blocks`` (and the kernel of the
+  ``--baseline`` checkout) against the plain version and cuDNN's
+  three-convolution block; int8 path: the 38 int8_matmul_requant calls of one
   forward and the per-class suppression at C = 2 and C = 90, kernel
   against plain version, as device time;
 - the host's cost of one launch through each of the path's kernel
@@ -34,7 +36,9 @@ compare numbers only within one run.
 """
 
 import argparse
+import ctypes
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -53,7 +57,8 @@ from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION,
 from watsor_tpu_torch.workload import (BATCH, FRAME_HW, FUSED_SHAPES,
                                        build_int8_path_detector,
                                        build_main_path_detector,
-                                       calibration_frames, camera_filters)
+                                       calibration_frames, camera_filters,
+                                       cudnn_block)
 
 
 def wall_ms(fn, n):
@@ -257,11 +262,39 @@ def profile_trace(be, images, cameras, results, label, steps=10, top=12):
     return prof
 
 
-def profile_blocks(device, results, chunks):
-    """The 12 fused blocks at batch 8: each chunk width against plain."""
-    libs = {c: _build.load('fused_block', fused_block._SIGNATURES,
-                           defines=('WT_FUSED_CHUNK={}'.format(c),))
-            for c in chunks}
+# the C entry of the first fused-block kernel (before launch plans): x,
+# x_is_bf16, we, be, wdw, bdw, wp, bp, out, B, H, W, C_in, E, C_out,
+# residual, device, stream
+_V1_SIGNATURES = {'wt_fused_inverted_residual': [
+    ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 +
+    [ctypes.c_int] * 8 + [ctypes.c_void_p]}
+
+
+def _baseline_launcher(tree):
+    """A launcher for the fused-block kernel of another checkout ``tree``
+    whose csrc/fused_block.cu has the first version's C entry."""
+    lib = _build.load('fused_block_baseline', _V1_SIGNATURES,
+                      source=os.path.join(tree, 'watsor_tpu_torch', 'csrc',
+                                          'fused_block.cu'))
+
+    def launch(x, args, out, residual):
+        B, H, W, C_in = x.shape
+        _build.check(lib.wt_fused_inverted_residual(
+            x.data_ptr(), int(x.dtype == torch.bfloat16),
+            *(a.data_ptr() for a in args), out.data_ptr(), B, H, W, C_in,
+            args[0].shape[-1], args[4].shape[-1], int(residual),
+            x.device.index, torch.cuda.current_stream().cuda_stream),
+            'baseline fused block')
+    return launch
+
+
+def profile_blocks(device, results, min_blocks, baseline=None):
+    """The 12 fused blocks at batch 8 as device time: the kernel with the
+    launch plan of each ``min_blocks`` (the plan's one tunable), the
+    kernel of the ``baseline`` checkout if given, the plain version and
+    cuDNN's three-convolution block. Kernel versions take turns A B B A."""
+    lib = _build.load('fused_block', fused_block._SIGNATURES)
+    old = _baseline_launcher(baseline) if baseline else None
     rng = np.random.default_rng(0)
     totals = defaultdict(float)
     rows = []
@@ -281,29 +314,38 @@ def profile_blocks(device, results, chunks):
             x, *args, residual=residual).float()
         out = torch.empty((BATCH, H, H, C_out), dtype=torch.bfloat16,
                           device=device)
+        versions = {}
+        for m in min_blocks:
+            plan = fused_block.plan_launch(BATCH, H, H, C_in, E, C_out,
+                                           min_blocks=m)
+            versions['min{}'.format(m)] = (
+                lambda plan=plan: fused_block.launch(lib, x, *args, out,
+                                                     residual, plan))
+        if old is not None:
+            versions['baseline'] = lambda: old(x, args, out, residual)
         row = {'shape': [H, C_in, E, C_out]}
         times = defaultdict(list)
-        for c in list(chunks) + list(chunks)[::-1]:     # A B C C B A
-            times[c].append(graph_ms(lambda: fused_block.launch(
-                libs[c], x, *args, out, residual)))
-        for c in chunks:
-            fused_block.launch(libs[c], x, *args, out, residual)
+        for name in list(versions) + list(versions)[::-1]:
+            times[name].append(graph_ms(versions[name]))
+        for name, run in versions.items():
+            run()
             torch.cuda.synchronize()
-            row['chunk{}_ms'.format(c)] = statistics.mean(times[c])
-            row['chunk{}_max_err'.format(c)] = float(
-                (out.float() - want).abs().max())
-            totals['chunk{}'.format(c)] += row['chunk{}_ms'.format(c)]
+            row[name + '_ms'] = statistics.mean(times[name])
+            row[name + '_max_err'] = float((out.float() - want).abs().max())
+            totals[name] += row[name + '_ms']
         row['plain_ms'] = graph_ms(lambda: fused_block
                                    .fused_inverted_residual_plain(
                                        x, *args, residual=residual))
-        totals['plain'] += row['plain_ms']
+        row['cudnn_ms'] = graph_ms(cudnn_block(x, *args, residual))
+        for name in ('plain', 'cudnn'):
+            totals[name] += row[name + '_ms']
         rows.append(row)
-        print('block {}x{} {}->{}->{}: {} | plain {:.4f} ms'.format(
-            H, H, C_in, E, C_out, ', '.join(
-                'chunk {} {:.4f} ms (max err {:.3g})'.format(
-                    c, row['chunk{}_ms'.format(c)],
-                    row['chunk{}_max_err'.format(c)]) for c in chunks),
-            row['plain_ms']), flush=True)
+        print('block {}x{} {}->{}->{}: {} | plain {:.4f} ms | cuDNN {:.4f} '
+              'ms'.format(H, H, C_in, E, C_out, ', '.join(
+                  '{} {:.4f} ms (max err {:.3g})'.format(
+                      name, row[name + '_ms'], row[name + '_max_err'])
+                  for name in versions), row['plain_ms'], row['cudnn_ms']),
+              flush=True)
     results['blocks'] = rows
     results['blocks_total_ms'] = dict(totals)
     print('12 blocks on the device: ' + ', '.join(
@@ -420,9 +462,13 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--path', choices=('main', 'int8'), default='main',
                         help='the main path (fused walk) or the int8 path')
-    parser.add_argument('--chunks', default='48',
-                        help='fused-block chunk widths to time, comma list '
-                             '(multiples of 16)')
+    parser.add_argument('--min-blocks', default=str(fused_block.MIN_BLOCKS),
+                        help='fused-block launch plans to time: values of '
+                             'the plan\'s MIN_BLOCKS, comma list')
+    parser.add_argument('--baseline', default=None,
+                        help='a checkout whose fused-block kernel is timed '
+                             'beside this one\'s (the first version\'s C '
+                             'entry)')
     parser.add_argument('--steps', type=int, default=30,
                         help='backend steps timed per turn')
     parser.add_argument('--trace', default=None,
@@ -447,7 +493,8 @@ def main(argv=None):
         prof.export_chrome_trace(args.trace)
     if args.path == 'main':
         profile_blocks(device, results,
-                       [int(c) for c in args.chunks.split(',') if c.strip()])
+                       [int(m) for m in args.min_blocks.split(',')
+                        if m.strip()], args.baseline)
         profile_launch_cost(device, results)
     else:
         profile_int8_kernels(device, results)

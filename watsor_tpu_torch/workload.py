@@ -18,8 +18,8 @@ import os
 import numpy as np
 import torch
 
-from watsor_tpu_torch.host import ZoneMask, coco_label_index, \
-    get_alpha_channel
+from watsor_tpu_torch.config.coco import coco_label_index
+from watsor_tpu_torch.filters.mask import ZoneMask, get_alpha_channel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = 'ssd_mobilenet_v2'
@@ -126,3 +126,23 @@ def camera_filters(cameras, frame_hw=FRAME_HW):
         if mask is not None:
             refiners[camera] = ZoneRefiner(mask, DETECT)
     return tables, refiners
+
+
+def cudnn_block(x, we, be, wdw, bdw, wp, bp, residual):
+    """The fused block as cuDNN runs it: three bf16 channels-last
+    convolutions with the relu6 clamps (and the residual add). Timed as
+    kernel 2's yardstick; the port never calls it."""
+    import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)                   # NCHW view, channels last
+    cl = torch.channels_last
+    w1 = we.t()[:, :, None, None].contiguous(memory_format=cl)
+    w2 = wdw.permute(2, 0, 1)[:, None].contiguous(memory_format=cl)
+    w3 = wp.t()[:, :, None, None].contiguous(memory_format=cl)
+    b1, b2, b3 = (b.to(torch.bfloat16) for b in (be, bdw, bp))
+
+    def run():
+        e = F.conv2d(xc, w1, b1).clamp_(0, 6)
+        d = F.conv2d(e, w2, b2, padding=1, groups=w2.shape[0]).clamp_(0, 6)
+        p = F.conv2d(d, w3, b3)
+        return p + xc if residual else p
+    return run
