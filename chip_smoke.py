@@ -69,10 +69,6 @@ INT8_MIN_COSINE = 0.95
 INT8_CALLS = 38
 # kernel-2 launches in one forward of the fused walk: its 12 blocks
 FUSED_CALLS = 12
-# the card's peaks for a kernel's bound (one H100 SXM at 700 W: NVIDIA's
-# data sheet, dense): device memory bytes/s and operations/s by type
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
 
 
 def log(*args):
@@ -97,35 +93,13 @@ def time_ms(fn, reps=7, inner=10):
     return statistics.median(times)
 
 
-class Bound:
-    """The least time the card could take for some work: the bytes moved
-    once over the memory rate against the operations over the peak rate of
-    their type (each type on its own units), the larger of the two."""
-
-    def __init__(self):
-        self.bytes_ms = 0.0
-        self.ops_ms = 0.0
-
-    def add(self, nbytes, **ops):
-        """One call: ``nbytes`` read or written once, ``ops`` counts by
-        type (bf16, f32, int8). Calls add up."""
-        self.bytes_ms += 1e3 * nbytes / HBM_BYTES_S
-        self.ops_ms += max([1e3 * n / PEAK_OPS_S[kind]
-                            for kind, n in ops.items()] + [0.0])
-        return self
-
-    def update(self, entry):
-        entry['bound_ms'] = max(self.bytes_ms, self.ops_ms)
-        entry['bound_by'] = 'bytes' if self.bytes_ms >= self.ops_ms \
-            else 'operations'
-
-
 def phase_kernels(device, results):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     from watsor_tpu_torch.ops import fused_block, nms_fixed_point
     from watsor_tpu_torch.ops.boxes import iou_matrix
-    from watsor_tpu_torch.workload import FUSED_SHAPES, WATCHED, cudnn_block
+    from watsor_tpu_torch.workload import (FUSED_SHAPES, WATCHED, Bound,
+                                           cudnn_block)
 
     rng = np.random.default_rng(0)
     M = 128
@@ -215,7 +189,7 @@ def phase_kernels(device, results):
             '{} smem {}'.format(
                 BATCH, H, H, C_in, E, C_out, ' +res' if residual else '',
                 err, ms, plain_ms, library_ms,
-                max(one.bytes_ms, one.ops_ms), plan.rows, plan.cluster,
+                one.ms, plan.rows, plan.cluster,
                 plan.blocks, plan.smem))
         entry['max_abs_err'] = max(entry['max_abs_err'], err)
         entry['ms'] += ms                # one forward's 12 blocks
@@ -231,7 +205,9 @@ def phase_kernels_int8_path(device, results, rng):
     import collections
     import torch
     from watsor_tpu_torch.ops import int8_matmul, nms_suppress
-    from watsor_tpu_torch.workload import WATCHED, int8_pointwise_calls
+    from watsor_tpu_torch.workload import (WATCHED, Bound, int8_call_work,
+                                           int8_pointwise_calls,
+                                           int_mm_operand)
 
     K = 100                              # per_class_k
     entry = {'name': 'pallas_suppress', 'route': 'cuda',
@@ -269,11 +245,13 @@ def phase_kernels_int8_path(device, results, rng):
                         f32=12 * BATCH * C * K * (K - 1) // 2).update(entry)
     results.append(entry)
 
+    # library_ms: torch._int_mm, the int8 product to int32 alone (GEMM
+    # only, no epilogue), summed over the forward's calls
     entry = {'name': 'int8_matmul_requant', 'route': 'cuda',
              'source': 'watsor_tpu_torch/csrc/int8_matmul.cu',
              'replaces': 'watsor_tpu/ops/int8_matmul.py:111',
              'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
-             'library_ms': None}
+             'library_ms': 0.0}
     roof = Bound()
     calls = collections.Counter(int8_pointwise_calls(BATCH))
     for (M, K, N, quantize, relu6), n in calls.items():
@@ -303,17 +281,25 @@ def phase_kernels_int8_path(device, results, rng):
         ms = time_ms(lambda: int8_matmul.int8_matmul_requant(*args))
         plain_ms = time_ms(lambda: int8_matmul.int8_matmul_requant_plain(
             *args), reps=5, inner=3)
+        w_mm = int_mm_operand(x, w)[0]
+        library_ms = time_ms(lambda: torch._int_mm(x, w_mm))
+        nbytes, ops = int8_call_work(M, K, N, quantize)
+        plan = int8_matmul.plan_launch(M, K, N)
         log('phase1 int8_matmul_requant M={} K={} N={} {}{} x{}: '
-            'bit-identical, kernel {:.4f} ms, plain {:.4f} ms'.format(
+            'bit-identical, kernel {:.4f} ms, plain {:.4f} ms, _int_mm '
+            '{:.4f} ms, bound {:.4f} ms; plan bm {} bn {} splits {} stages '
+            '{} tiles {} blocks {} smem {}'.format(
                 M, K, N, 'int8' if quantize else 'f32',
-                ' relu6' if relu6 else '', n, ms, plain_ms))
+                ' relu6' if relu6 else '', n, ms, plain_ms, library_ms,
+                Bound().add(nbytes, int8=ops).ms, plan.bm, plan.bn,
+                plan.splits, int8_matmul.STAGES, plan.tiles, plan.blocks,
+                plan.smem))
         entry['max_abs_err'] = max(entry['max_abs_err'], err)
         entry['ms'] += n * ms            # one forward's 38 calls
         entry['plain_ms'] += n * plain_ms
-        # int8 x and w in, scale and bias in f32, int8 or f32 out
+        entry['library_ms'] += n * library_ms
         for _ in range(n):
-            roof.add(M * K + K * N + 8 * N + M * N * (1 if quantize else 4),
-                     int8=2 * M * K * N)
+            roof.add(nbytes, int8=ops)
     if sum(calls.values()) != INT8_CALLS:
         raise AssertionError('{} pointwise calls a forward'.format(
             sum(calls.values())))

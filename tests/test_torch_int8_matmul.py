@@ -80,18 +80,85 @@ def test_int8_matmul_sums_past_f32_exactness():
     assert got[0, 0].item() == np.float32(np.int32(1280 * 127 * 127 - 127))
 
 
+# ragged shapes: one row, odd K and N, N not a multiple of 4
+RAGGED = [(1, 24, 16), (130, 17, 70), (129, 1280, 65)]
+# every distinct shape of one int8 forward at batch 8, and the ragged ones
+PLAN_SHAPES = sorted({(M, K, N) for M, K, N, _, _ in
+                      workload.int8_pointwise_calls(8)}) + RAGGED
+
+
+@pytest.mark.parametrize('shape', PLAN_SHAPES)
+def test_int8_launch_plan(shape):
+    """The launch plan covers the shape, fits in shared memory, splits K
+    over at most 8 blocks in slices of at least 64, uses narrow tiles for
+    narrow N, gives at least two thirds of the SMs a block wherever K
+    allows it, and is cached."""
+    M, K, N = shape
+    plan = t_mm.plan_launch(M, K, N)
+    assert plan is t_mm.plan_launch(M, K, N)
+    assert plan.bm in (64, 128) and plan.bn % 16 == 0
+    assert plan.bn >= N or plan.bn == 128
+    assert plan.bn == next((b for b in t_mm.WIDTHS if b >= N), 128)
+    assert 1 <= plan.splits <= t_mm.MAX_CLUSTER
+    assert plan.kslice % 32 == 0
+    assert plan.splits == 1 or plan.kslice >= t_mm.MIN_SLICE
+    assert (plan.splits - 1) * plan.kslice < K <= plan.splits * plan.kslice
+    assert plan.tiles >= 1 and (plan.splits == 1 or plan.tiles == 1)
+    row_tiles = -(-M // plan.bm)
+    assert plan.blocks == (-(-row_tiles // plan.tiles) * -(-N // plan.bn) *
+                           plan.splits)
+    assert plan.smem == t_mm._layout_bytes(plan.bm, plan.bn, plan.kslice,
+                                           plan.splits, plan.tiles)
+    assert plan.smem <= t_mm.SMEM_LIMIT
+    best = max(p.blocks for p in t_mm.candidate_plans(M, K, N))
+    if best >= t_mm.MIN_BLOCKS:
+        assert plan.blocks >= t_mm.MIN_BLOCKS
+
+
+def test_int8_launch_plans_all_fit():
+    """Every plan the kernel takes for the path's shapes fits in shared
+    memory, and the wrapper's plan is one of them."""
+    for M, K, N in PLAN_SHAPES:
+        plans = t_mm.candidate_plans(M, K, N)
+        assert t_mm.plan_launch(M, K, N) in plans
+        assert all(p.smem <= t_mm.SMEM_LIMIT for p in plans)
+
+
+def test_int8_bound_of_one_forward():
+    """The bound of the 38 calls at batch 8 that chip_smoke.py and
+    profile_step report: bytes-bound, 113.7 MB over 3.35 TB/s."""
+    calls = workload.int8_pointwise_calls(8)
+    roof = workload.Bound()
+    for M, K, N, quantize, _ in calls:
+        nbytes, ops = workload.int8_call_work(M, K, N, quantize)
+        roof.add(nbytes, int8=ops)
+    entry = {}
+    roof.update(entry)
+    assert len(calls) == 38 and entry['bound_by'] == 'bytes'
+    assert round(roof.bytes_ms * 3.35e12 / 1e9, 1) == 113.7
+    assert abs(entry['bound_ms'] - 0.0339) < 5e-5
+
+
+def test_int8_launch_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError):
+        t_mm.plan_launch(0, 16, 16)
+
+
 @pytest.mark.cuda
 def test_int8_matmul_kernel_matches_plain_on_the_card():
     """The CUDA kernel against the plain version, bit for bit, at the int8
-    path's distinct shapes at batch 2 and at ragged ones (run on the card:
-    pytest -m cuda)."""
+    path's distinct shapes at batch 2 and 8, at ragged ones and at a split
+    of K that leaves a short last slice (run on the card: pytest -m
+    cuda)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     device = torch.device('cuda', 0)
     rng = np.random.default_rng(6)
-    cases = sorted(set(workload.int8_pointwise_calls(2))) + [
+    cases = sorted(set(workload.int8_pointwise_calls(2)) |
+                   set(workload.int8_pointwise_calls(8))) + [
         (1, 24, 16, True, True), (130, 17, 70, True, False),
-        (129, 1280, 65, False, True)]
+        (129, 1280, 65, False, True), (800, 1000, 160, True, True),
+        (800, 1000, 160, False, False)]
     for M, K, N, quantize, relu6 in cases:
         x = torch.tensor(rng.integers(-127, 128, (M, K)), dtype=torch.int8,
                          device=device)

@@ -3,6 +3,7 @@
     python -m watsor_tpu_torch.profile_step [--path main|int8]
                                             [--min-blocks 132,264]
                                             [--baseline OTHER_CHECKOUT]
+                                            [--int8-plans]
                                             [--trace step_trace.json]
 
 Drives a workload of chip_smoke.py (``watsor_tpu_torch.workload``) at
@@ -25,11 +26,22 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
 - main path: the 12 fused blocks as device time, the kernel with the
   launch plan of each ``--min-blocks`` (and the kernel of the
   ``--baseline`` checkout) against the plain version and cuDNN's
-  three-convolution block; int8 path: the 38 int8_matmul_requant calls of one
-  forward and the per-class suppression at C = 2 and C = 90, kernel
-  against plain version, as device time;
+  three-convolution block;
+- int8 path: a row for each distinct shape of one forward's 38
+  int8_matmul_requant calls (the kernel, the ``--baseline`` checkout's
+  kernel, the plain version, ``torch._int_mm`` alone and followed by the
+  epilogue as PyTorch ops, the bound, the launch plan) and their totals;
+  with ``--int8-plans`` every launch plan of the kernel at each shape; the
+  per-class suppression at C = 2 and C = 90, kernel against plain version;
 - the host's cost of one launch through each of the path's kernel
   wrappers (checks, output allocation, the ctypes call), at its shapes.
+
+``--baseline`` takes another checkout, unpacked with ``git archive``, and
+builds its kernel of the path from its ``csrc/`` beside this one's: on the
+main path its fused-block kernel, bound with the C entry of the second
+version (a launch plan from ``ops/fused_block.py plan_launch``); on the
+int8 path its int8 kernel, bound with the C entry of the first version
+(no plan). Versions take turns A B B A.
 
 Every time is a median. The card's name and power limit head the output;
 compare numbers only within one run.
@@ -54,11 +66,12 @@ from watsor_tpu_torch.ops.boxes import decode_boxes
 from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION,
                                       batched_class_aware_nms,
                                       batched_class_aware_nms_fused_late)
-from watsor_tpu_torch.workload import (BATCH, FRAME_HW, FUSED_SHAPES,
+from watsor_tpu_torch.workload import (BATCH, FRAME_HW, FUSED_SHAPES, Bound,
                                        build_int8_path_detector,
                                        build_main_path_detector,
                                        calibration_frames, camera_filters,
-                                       cudnn_block)
+                                       cudnn_block, int8_call_work,
+                                       int_mm_operand)
 
 
 def wall_ms(fn, n):
@@ -262,29 +275,51 @@ def profile_trace(be, images, cameras, results, label, steps=10, top=12):
     return prof
 
 
-# the C entry of the first fused-block kernel (before launch plans): x,
-# x_is_bf16, we, be, wdw, bdw, wp, bp, out, B, H, W, C_in, E, C_out,
-# residual, device, stream
-_V1_SIGNATURES = {'wt_fused_inverted_residual': [
-    ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 +
-    [ctypes.c_int] * 8 + [ctypes.c_void_p]}
-
-
 def _baseline_launcher(tree):
     """A launcher for the fused-block kernel of another checkout ``tree``
-    whose csrc/fused_block.cu has the first version's C entry."""
-    lib = _build.load('fused_block_baseline', _V1_SIGNATURES,
+    whose csrc/fused_block.cu has the second version's C entry (a launch
+    plan from ops/fused_block.py plan_launch)."""
+    lib = _build.load('fused_block_baseline', fused_block._SIGNATURES,
                       source=os.path.join(tree, 'watsor_tpu_torch', 'csrc',
                                           'fused_block.cu'))
 
     def launch(x, args, out, residual):
         B, H, W, C_in = x.shape
-        _build.check(lib.wt_fused_inverted_residual(
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
-            *(a.data_ptr() for a in args), out.data_ptr(), B, H, W, C_in,
-            args[0].shape[-1], args[4].shape[-1], int(residual),
-            x.device.index, torch.cuda.current_stream().cuda_stream),
-            'baseline fused block')
+        plan = fused_block.plan_launch(B, H, W, C_in, args[0].shape[-1],
+                                       args[4].shape[-1])
+        fused_block.launch(lib, x, *args, out, residual, plan)
+    return launch
+
+
+# the C entry of the first int8_matmul_requant kernel (one 128 x 64 tile a
+# block, no launch plan): x, w, scale, bias, inv, hi, relu6, out,
+# out_is_i8, M, K, N, device, stream
+_INT8_V1_SIGNATURES = {'wt_int8_matmul_requant': [
+    ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                            ctypes.c_void_p] + [ctypes.c_int] * 5 +
+    [ctypes.c_void_p]}
+
+
+def _int8_baseline_launcher(tree):
+    """A launcher with the arguments of int8_matmul_requant for the int8
+    kernel of another checkout ``tree`` whose csrc/int8_matmul.cu has the
+    first version's C entry."""
+    from watsor_tpu_torch.ops.int8_matmul import requant_constants
+    lib = _build.load('int8_matmul_baseline', _INT8_V1_SIGNATURES,
+                      source=os.path.join(tree, 'watsor_tpu_torch', 'csrc',
+                                          'int8_matmul.cu'))
+
+    def launch(x, w, scale, bias, out_scale, relu6):
+        (M, K), N = x.shape, w.shape[1]
+        inv, hi = requant_constants(out_scale)
+        out = torch.empty((M, N), device=x.device, dtype=torch.float32
+                          if out_scale is None else torch.int8)
+        _build.check(lib.wt_int8_matmul_requant(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            float(inv), float(hi), int(relu6), out.data_ptr(),
+            int(out_scale is not None), M, K, N, x.device.index,
+            torch.cuda.current_stream().cuda_stream), 'baseline int8 kernel')
+        return out
     return launch
 
 
@@ -386,33 +421,85 @@ def profile_launch_cost(device, results):
           flush=True)
 
 
-def profile_int8_kernels(device, results):
+def profile_int8_kernels(device, results, baseline=None):
     """The int8 path's kernels against their plain versions as device
-    time: one forward's 38 int8_matmul_requant calls (each distinct shape
-    timed once and counted as often as the forward calls it) and the
+    time: one row for each distinct shape of one forward's 38
+    int8_matmul_requant calls (the kernel, the ``baseline`` checkout's
+    kernel in turns A B B A, the plain version, torch._int_mm alone and
+    with the epilogue as PyTorch ops, the bound, the launch plan),
+    totals weighted by how often the forward calls each shape, and the
     per-class suppression at B = 8, K = 100."""
     import collections
     from watsor_tpu_torch.ops import int8_matmul, nms_suppress
     from watsor_tpu_torch.workload import int8_pointwise_calls
     rng = np.random.default_rng(0)
+    old = _int8_baseline_launcher(baseline) if baseline else None
     totals = defaultdict(float)
+    rows = []
     for (M, K, N, quantize, relu6), n in collections.Counter(
             int8_pointwise_calls(BATCH)).items():
-        args = (torch.tensor(rng.integers(-127, 128, (M, K)),
-                             dtype=torch.int8, device=device),
-                torch.tensor(rng.integers(-127, 128, (K, N)),
-                             dtype=torch.int8, device=device),
-                torch.full((N,), 3e-4 / K ** 0.5, device=device),
-                torch.zeros(N, device=device), 0.047 if quantize else None,
-                relu6)
-        totals['kernel'] += n * graph_ms(
-            lambda: int8_matmul.int8_matmul_requant(*args))
-        totals['plain'] += n * graph_ms(
-            lambda: int8_matmul.int8_matmul_requant_plain(*args))
+        x = torch.tensor(rng.integers(-127, 128, (M, K)), dtype=torch.int8,
+                         device=device)
+        w = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8,
+                         device=device)
+        scale = torch.tensor(rng.uniform(1.5e-4, 4.5e-4, N) / K ** 0.5,
+                             dtype=torch.float32, device=device)
+        bias = torch.tensor(rng.normal(0, 0.5, N), dtype=torch.float32,
+                            device=device)
+        out_scale = 0.047 if quantize else None
+        args = (x, w, scale, bias, out_scale, relu6)
+        want = int8_matmul.int8_matmul_requant_plain(*args)
+        versions = {'kernel': lambda: int8_matmul.int8_matmul_requant(*args)}
+        if old is not None:
+            versions['baseline'] = lambda: old(*args)
+        row = {'shape': [M, K, N], 'out': 'int8' if quantize else 'f32',
+               'relu6': relu6, 'calls': n}
+        times = defaultdict(list)
+        for name in list(versions) + list(versions)[::-1]:
+            times[name].append(graph_ms(versions[name]))
+        for name, run in versions.items():
+            row[name + '_ms'] = statistics.mean(times[name])
+            row[name + '_identical'] = bool(torch.equal(run(), want))
+        row['plain_ms'] = graph_ms(
+            lambda: int8_matmul.int8_matmul_requant_plain(*args), n=3, reps=5)
+        w_mm, row['int_mm_w'] = int_mm_operand(x, w)
+        row['int_mm_ms'] = graph_ms(lambda: torch._int_mm(x, w_mm))
+        inv, hi = int8_matmul.requant_constants(out_scale)
+        scale_inv, bias_inv = scale * float(inv), bias * float(inv)
+
+        def int_mm_epilogue():
+            y = torch._int_mm(x, w_mm).float() * scale_inv + bias_inv
+            if relu6:
+                y = y.clamp(0.0, float(hi))
+            if quantize:
+                y = y.round().clamp(-127.0, 127.0).to(torch.int8)
+            return y
+        row['int_mm_epilogue_ms'] = graph_ms(int_mm_epilogue)
+        nbytes, ops = int8_call_work(M, K, N, quantize)
+        row['bound_ms'] = Bound().add(nbytes, int8=ops).ms
+        row['plan'] = int8_matmul.plan_launch(M, K, N)._asdict()
+        for key in ('kernel', 'baseline', 'plain', 'int_mm',
+                    'int_mm_epilogue', 'bound'):
+            if key + '_ms' in row:
+                totals[key] += n * row[key + '_ms']
+        rows.append(row)
+        print('int8_matmul_requant M={} K={} N={} {}{} x{}: {} | plain '
+              '{:.4f} | _int_mm {:.4f} ({}) | _int_mm+epilogue {:.4f} | '
+              'bound {:.4f} ms; plan {}'.format(
+                  M, K, N, row['out'], ' relu6' if relu6 else '', n,
+                  ', '.join('{} {:.4f} ms{}'.format(
+                      name, row[name + '_ms'],
+                      '' if row[name + '_identical'] else ' (DIFFERS)')
+                      for name in versions),
+                  row['plain_ms'], row['int_mm_ms'], row['int_mm_w'],
+                  row['int_mm_epilogue_ms'], row['bound_ms'],
+                  ' '.join('{}={}'.format(k, v)
+                           for k, v in row['plan'].items())), flush=True)
+    results['int8_matmul_shapes'] = rows
     results['int8_matmul_forward_device_ms'] = dict(totals)
-    print('38 int8_matmul_requant calls of a forward on the device: kernel '
-          '{:.4f} ms, plain {:.4f} ms'.format(totals['kernel'],
-                                              totals['plain']), flush=True)
+    print('38 int8_matmul_requant calls of a forward on the device: ' +
+          ', '.join('{} {:.4f} ms'.format(k, v) for k, v in totals.items()),
+          flush=True)
     for C in (2, 90):
         yx = rng.uniform(0, 1, (BATCH, C, 100, 2))
         boxes = torch.tensor(np.concatenate([yx, yx + 0.1], -1),
@@ -428,6 +515,56 @@ def profile_int8_kernels(device, results):
         print('pallas_suppress B={} C={} K=100 on the device: kernel {:.4f} '
               'ms, plain {:.4f} ms'.format(BATCH, C, kernel, plain),
               flush=True)
+
+
+def profile_int8_plans(device, results):
+    """Every launch plan the int8 kernel takes (ops/int8_matmul.py
+    candidate_plans) at each distinct shape of one int8 forward, as device
+    time, beside the plan that plan_launch picks: the sweep its rule was
+    fitted to."""
+    from watsor_tpu_torch.ops import int8_matmul
+    from watsor_tpu_torch.workload import int8_pointwise_calls
+    lib = _build.load('int8_matmul', int8_matmul._SIGNATURES)
+    rng = np.random.default_rng(0)
+    rows = []
+    for M, K, N, quantize, relu6 in sorted(set(int8_pointwise_calls(BATCH))):
+        x = torch.tensor(rng.integers(-127, 128, (M, K)), dtype=torch.int8,
+                         device=device)
+        w = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8,
+                         device=device)
+        scale = torch.full((N,), 3e-4 / K ** 0.5, device=device)
+        bias = torch.zeros(N, device=device)
+        out_scale = 0.047 if quantize else None
+        out = torch.empty((M, N), device=device, dtype=torch.int8
+                          if quantize else torch.float32)
+        want = int8_matmul.int8_matmul_requant_plain(x, w, scale, bias,
+                                                     out_scale, relu6)
+        timed = []
+        for plan in int8_matmul.candidate_plans(M, K, N):
+            def run(plan=plan):
+                int8_matmul.launch(lib, x, w, scale, bias, out, out_scale,
+                                   relu6, plan)
+            run()
+            if not torch.equal(out, want):
+                raise AssertionError('int8 plan {} differs at {}'.format(
+                    plan, (M, K, N)))
+            timed.append((graph_ms(run), plan))
+        chosen = int8_matmul.plan_launch(M, K, N)
+        best_ms, best = min(timed)
+        chosen_ms = next(ms for ms, p in timed if p == chosen)
+        rows.append({'shape': [M, K, N], 'out': 'int8' if quantize
+                     else 'f32', 'chosen': chosen._asdict(),
+                     'chosen_ms': chosen_ms, 'best': best._asdict(),
+                     'best_ms': best_ms,
+                     'plans': [[ms, p.bm, p.splits, p.tiles, p.blocks]
+                               for ms, p in timed]})
+        print('plans M={} K={} N={}: chosen bm {} S {} tiles {} {:.4f} ms, '
+              'best bm {} S {} tiles {} {:.4f} ms of {}'
+              .format(M, K, N, chosen.bm, chosen.splits, chosen.tiles,
+                      chosen_ms, best.bm, best.splits, best.tiles, best_ms,
+                      len(timed)),
+              flush=True)
+    results['int8_plan_sweep'] = rows
 
 
 def profile_launch_cost_int8(device, results):
@@ -466,9 +603,13 @@ def main(argv=None):
                         help='fused-block launch plans to time: values of '
                              'the plan\'s MIN_BLOCKS, comma list')
     parser.add_argument('--baseline', default=None,
-                        help='a checkout whose fused-block kernel is timed '
-                             'beside this one\'s (the first version\'s C '
-                             'entry)')
+                        help='a checkout whose kernel of the path is timed '
+                             'beside this one\'s: its fused-block kernel '
+                             '(with a launch plan) on the main path, its '
+                             'first int8 kernel on the int8 path')
+    parser.add_argument('--int8-plans', action='store_true',
+                        help='int8 path: also time every launch plan of '
+                             'the int8 kernel at each of its shapes')
     parser.add_argument('--steps', type=int, default=30,
                         help='backend steps timed per turn')
     parser.add_argument('--trace', default=None,
@@ -497,7 +638,9 @@ def main(argv=None):
                         if m.strip()], args.baseline)
         profile_launch_cost(device, results)
     else:
-        profile_int8_kernels(device, results)
+        profile_int8_kernels(device, results, args.baseline)
+        if args.int8_plans:
+            profile_int8_plans(device, results)
         profile_launch_cost_int8(device, results)
     print(json.dumps(results), flush=True)
 

@@ -33,6 +33,37 @@ MASK_PATH = os.path.join(ROOT, 'config', 'porch_mask.png')
 FUSED_SHAPES = [(75, 24, 144, 24)] + [(38, 32, 192, 32)] * 2 + \
     [(19, 64, 384, 64)] * 3 + [(19, 64, 384, 96)] + [(19, 96, 576, 96)] * 2 + \
     [(10, 160, 960, 160)] * 2 + [(10, 160, 960, 320)]
+# the card's peaks for a kernel's bound (one H100 SXM at 700 W: NVIDIA's
+# data sheet, dense): device memory bytes/s and operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
+
+
+class Bound:
+    """The least time the card could take for some work: the bytes moved
+    once over the memory rate against the operations over the peak rate of
+    their type (each type on its own units), the larger of the two."""
+
+    def __init__(self):
+        self.bytes_ms = 0.0
+        self.ops_ms = 0.0
+
+    def add(self, nbytes, **ops):
+        """One call: ``nbytes`` read or written once, ``ops`` counts by
+        type (bf16, f32, int8). Calls add up."""
+        self.bytes_ms += 1e3 * nbytes / HBM_BYTES_S
+        self.ops_ms += max([1e3 * n / PEAK_OPS_S[kind]
+                            for kind, n in ops.items()] + [0.0])
+        return self
+
+    @property
+    def ms(self):
+        return max(self.bytes_ms, self.ops_ms)
+
+    def update(self, entry):
+        entry['bound_ms'] = self.ms
+        entry['bound_by'] = 'bytes' if self.bytes_ms >= self.ops_ms \
+            else 'operations'
 
 
 def watched_labels():
@@ -98,6 +129,28 @@ def int8_pointwise_calls(batch=BATCH, size=300):
         h = down(h)
         channels = features
     return calls
+
+
+def int8_call_work(M, K, N, quantize):
+    """(bytes, int8 operations) of one int8_matmul_requant call for
+    ``Bound.add``: int8 x and w read once, f32 scale and bias, the int8 or
+    f32 output written once; 2MKN int8 operations."""
+    return M * K + K * N + 8 * N + M * N * (1 if quantize else 4), \
+        2 * M * K * N
+
+
+def int_mm_operand(x, w):
+    """w in a layout torch._int_mm takes with x, and its name: as it is,
+    else column-major, which cuBLASLt asks for at some shapes. Call it
+    outside any timed call. torch._int_mm is a yardstick of kernel 4's
+    product; the port never calls it."""
+    try:
+        torch._int_mm(x, w)
+        return w, 'row-major'
+    except RuntimeError:
+        wt = w.t().contiguous().t()
+        torch._int_mm(x, wt)
+        return wt, 'column-major'
 
 
 def demo_zone_mask(frame_hw=FRAME_HW):
