@@ -36,6 +36,7 @@ kernel results, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
@@ -62,6 +63,8 @@ FUSED_RTOL, FUSED_ATOL, FUSED_MEAN_ATOL = 2.0 ** -6, 1e-2, 1e-3
 # the fused bf16 detector against the f32 plain model: bf16 rounds every
 # activation of ~70 layers (2^-9 relative each)
 MODEL_REL_TOL = 5e-2
+# the port's f32 bar against the JAX package (ROADMAP.md "Slice by slice")
+F32_REL_TOL = 5e-4
 # the int8 walk against the f32 plain model: the bar of
 # tests/test_ssd_int8.py (cosine of the raw outputs)
 INT8_MIN_COSINE = 0.95
@@ -73,6 +76,24 @@ FUSED_CALLS = 12
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def tf32(enabled):
+    """cuDNN's and cuBLAS's TF32 switches set to ``enabled`` for a block,
+    then restored. The f32 comparisons need full f32 (cuDNN runs f32
+    convolutions in TF32 by default); the paths and the application boots
+    run under the process defaults, as users run them."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = enabled
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def time_ms(fn, reps=7, inner=10):
@@ -445,9 +466,17 @@ def phase_reference(device, detector):
     x = images.float() * (2.0 / 255.0) - 1.0
     with torch.inference_mode():
         gb, gl = detector.raw_apply(x)
-        wb, wl = reference.raw_apply(x)
+        with tf32(False):
+            wb, wl = reference.raw_apply(x)
+        with tf32(True):
+            tb, tl = reference.raw_apply(x)
         out = detector.detect_batch(images)
     torch.cuda.synchronize()
+    gaps = [float((t - w).abs().max() / w.abs().max())
+            for t, w in ((tb, wb), (tl, wl))]
+    log('phase2 TF32: f32 plain model raw outputs with TF32 on against off, '
+        'relative max error boxes {:.3g} logits {:.3g} (the f32 bar {})'
+        .format(gaps[0], gaps[1], F32_REL_TOL))
     errs = []
     for got, want in ((gb, wb), (gl, wl)):
         if not bool(torch.isfinite(got).all()):
@@ -482,7 +511,8 @@ def phase_int8_reference(device, detector):
     x = images.float() * (2.0 / 255.0) - 1.0
     with torch.inference_mode():
         got = detector.raw_apply(x)
-        want = reference.raw_apply(x)
+        with tf32(False):
+            want = reference.raw_apply(x)
         out = detector.detect_batch(images)
     torch.cuda.synchronize()
     cosines = []
@@ -602,9 +632,6 @@ def main():
               .format(exc), file=sys.stderr)
         return 1
 
-    # f32 comparisons on the card need full f32 (cuDNN defaults to TF32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device('cuda', 0)
     log('python {}, torch {}, CUDA {}'.format(
         sys.version.split()[0], torch.__version__, torch.version.cuda))
@@ -665,9 +692,13 @@ def main():
                                  'batches; {} a forward expected'.format(
                                      n, batches, INT8_CALLS))
 
+    def phase1():
+        with tf32(False):
+            phase_kernels(device, results)
+
     # (name, run, the phase it needs)
     phases = [
-        ('phase1 kernels', lambda: phase_kernels(device, results), None),
+        ('phase1 kernels', phase1, None),
         ('phase2 pipeline', main_path, None),
         ('phase2 reference',
          lambda: phase_reference(device, state['detector']),

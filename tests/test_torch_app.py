@@ -201,3 +201,18 @@ def test_unported_knobs_raise(tmp_path, monkeypatch, knob, value):
     app = TorchApplication(args)
     with pytest.raises(SystemExit, match='ROADMAP'):
         app._setup(app._read_config())
+
+
+@pytest.mark.parametrize('precision,tf32', [('32', False), ('16', True)])
+def test_f32_service_turns_tf32_off(tmp_path, monkeypatch, precision, tf32):
+    """TRT_FLOAT_PRECISION=32 builds an f32 detector in full f32: cuDNN's
+    and cuBLAS's TF32 switches go off for the process; bf16 leaves them."""
+    _clear_knobs(monkeypatch)
+    monkeypatch.setenv('TRT_FLOAT_PRECISION', precision)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    _, args = _args(tmp_path)
+    app = TorchApplication(args)
+    app._detector_factory(app._read_config())
+    assert torch.backends.cudnn.allow_tf32 is tf32
+    assert torch.backends.cuda.matmul.allow_tf32 is tf32

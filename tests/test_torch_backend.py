@@ -137,7 +137,7 @@ def small_detector():
     cfg = SSDConfig(num_classes=90, input_size=96, dtype=torch.float32,
                     nms_mode='fused_exact', active_labels=(1, 3),
                     score_threshold=0.0)
-    return build_detector(cfg, seed=0)
+    return build_detector(cfg, seed=0, device='cpu')
 
 
 def test_object_detector_confirms_every_frame(small_detector):

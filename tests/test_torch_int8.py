@@ -45,7 +45,7 @@ def rig():
     variables = jax.tree_util.tree_map(np.asarray, jax_det.params)
     port = build_detector(SSDConfig(num_classes=3, input_size=SIZE,
                                     dtype=torch.float32, nms_mode='exact'),
-                          variables=variables)
+                          variables=variables, device='cpu')
     calib = np.random.default_rng(0).integers(0, 256, (4, SIZE, SIZE, 3),
                                               np.uint8)
     return jax_det, port, calib, j_int8.calibrate(jax_det, calib)
@@ -65,7 +65,8 @@ def packs(rig):
     """Both packs, built from the same (JAX) calibration."""
     jax_det, port, _, absmax = rig
     return (j_int8.build_pack(jax_det, absmax),
-            t_int8.build_pack(port.variables, absmax, port.config))
+            t_int8.build_pack(port.variables, absmax, port.config,
+                              device='cpu'))
 
 
 @pytest.fixture
@@ -139,7 +140,8 @@ def test_quantized_detector_raw_matches_jax(rig, images):
                                              params=jax_det.params)
     want = [np.asarray(a) for a in jax_q.raw_apply(
         j_quant.dequantize_params(jax_q.params, jnp.float32), images[1])]
-    port_q = t_quant.build_quantized_detector(port.config, port.variables)
+    port_q = t_quant.build_quantized_detector(port.config, port.variables,
+                                              device='cpu')
     with torch.inference_mode():
         got = [a.numpy() for a in port_q.raw_apply(
             torch.from_numpy(np.asarray(images[1])))]

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 from watsor_tpu.models.ssd import SSDConfig as JaxConfig
 from watsor_tpu.models.ssd import build_detector as jax_build
 from watsor_tpu.ops.preprocess import preprocess_batch as jax_preprocess
+from watsor_tpu_torch.models import quantize as t_quant
+from watsor_tpu_torch.models import ssd_int8 as t_int8
 from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
 from watsor_tpu_torch.models.ssd_fused import (build_folded_pack,
                                                build_fused_detector)
@@ -44,7 +46,7 @@ def pair():
     port = build_detector(SSDConfig(num_classes=3, input_size=SIZE,
                                     dtype=torch.float32,
                                     nms_mode='fused_exact'),
-                          variables=variables)
+                          variables=variables, device='cpu')
     return jax_det, port
 
 
@@ -120,7 +122,7 @@ def test_active_labels_match_jax(pair):
     jax_sub = jax_build(jax_det.config._replace(active_labels=(1, 3)),
                         params=jax_det.params)
     port_sub = build_detector(port.config._replace(active_labels=(1, 3)),
-                              variables=port.variables)
+                              variables=port.variables, device='cpu')
     frames = np.random.default_rng(2).integers(0, 256, (1, SIZE, SIZE, 3),
                                                np.uint8)
     want = [np.asarray(a) for a in jax_sub.detect_batch(
@@ -143,7 +145,7 @@ def test_per_class_detect_batch_matches_jax(pair, mode):
     jax_sub = jax_build(cfg, params=jax_det.params)
     port_sub = build_detector(port.config._replace(nms_mode=mode,
                                                    active_labels=(1, 3)),
-                              variables=port.variables)
+                              variables=port.variables, device='cpu')
     frames = np.random.default_rng(5).integers(0, 256, (2, 120, 160, 3),
                                                np.uint8)
     want = [np.asarray(a) for a in jax_sub.detect_batch(
@@ -161,7 +163,7 @@ def test_per_class_detect_batch_matches_jax(pair, mode):
 def test_unknown_nms_mode_raises():
     with pytest.raises(ValueError, match='unknown nms mode'):
         build_detector(SSDConfig(num_classes=3, input_size=SIZE,
-                                 nms_mode='soft'))
+                                 nms_mode='soft'), device='cpu')
 
 
 def test_bridge_round_trips_the_variables_tree(pair):
@@ -184,7 +186,7 @@ def test_zoo_loads_npz_weights(pair, tmp_path):
     assert load_npz(tmp_path / 'ssd_mobilenet_v2.npz').keys() == \
         {'params', 'batch_stats'}
     loaded = build_from_zoo('ssd_mobilenet_v2', str(tmp_path),
-                            dtype=torch.float32)
+                            dtype=torch.float32, device='cpu')
     assert loaded.config.num_classes == 3
     np.testing.assert_array_equal(
         loaded.variables['params']['cls_head0']['bias'],
@@ -193,4 +195,28 @@ def test_zoo_loads_npz_weights(pair, tmp_path):
 
 def test_zoo_refuses_unported_models():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_from_zoo('efficientdet_lite0')
+        build_from_zoo('efficientdet_lite0', device='cpu')
+
+
+@pytest.mark.parametrize('builder', ['build_from_zoo', 'build_detector',
+                                     'build_quantized_detector',
+                                     'build_pack'])
+def test_builders_default_to_the_card(builder, monkeypatch):
+    """With no device given, a builder takes the current CUDA device; with
+    none visible it raises and names device='cpu', never falling back to
+    the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cfg = SSDConfig(num_classes=3, input_size=SIZE)
+    calls = {'build_from_zoo': lambda: build_from_zoo('ssd_mobilenet_v2'),
+             'build_detector': lambda: build_detector(cfg),
+             'build_quantized_detector':
+                 lambda: t_quant.build_quantized_detector(cfg),
+             'build_pack': lambda: t_int8.build_pack({}, {}, cfg)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[builder]()
+
+
+def test_build_from_zoo_builds_on_the_cpu_when_asked():
+    detector = build_from_zoo(device='cpu')
+    assert detector.device == torch.device('cpu')
+    assert {p.device.type for p in detector.model.parameters()} == {'cpu'}

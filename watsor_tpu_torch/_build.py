@@ -40,23 +40,29 @@ def _nvcc():
     return found
 
 
-def _library_path(name, source):
-    """Where ``source`` builds to for its current text."""
+def _flags(defines):
+    return NVCC_FLAGS + tuple('-D' + d for d in defines)
+
+
+def _library_path(name, source, defines=()):
+    """Where ``source`` builds to for its current text and ``defines``."""
     with open(source, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + ' '.join(_flags(defines)).encode())
     return os.path.join(BUILD_DIR, '{}-{}.so'.format(
         name, digest.hexdigest()[:16]))
 
 
-def load(name, signatures, source=None):
+def load(name, signatures, source=None, defines=()):
     """The ctypes library of ``csrc/<name>.cu``, built if not yet built.
     ``signatures`` maps each C entry point to its argument types; every
     entry point returns a CUDA error code. ``source`` builds another file
-    in its place (another tree's version of the kernel, for A/B runs).
-    Builds of different libraries may run at once, from different
-    threads."""
+    in its place (another tree's version of the kernel, for A/B runs);
+    ``defines`` are preprocessor macros for a development build (the
+    suppression kernels' WT_PHASE_CLOCK). Builds of different libraries
+    may run at once, from different threads."""
     source = os.path.abspath(source or os.path.join(CSRC_DIR, name + '.cu'))
-    key = (name, source)
+    defines = tuple(defines)
+    key = (name, source, defines)
     with _lock:
         lib = _libs.get(key)
         if lib is not None:
@@ -67,12 +73,13 @@ def load(name, signatures, source=None):
             lib = _libs.get(key)
         if lib is not None:
             return lib
-        path = _library_path(name, source)
+        path = _library_path(name, source, defines)
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = '{}.{}.{}.tmp'.format(path, os.getpid(),
                                         threading.get_ident())
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, source],
+            proc = subprocess.run([_nvcc(), *_flags(defines), '-o', tmp,
+                                   source],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError('nvcc failed for {}:\n{}{}'.format(

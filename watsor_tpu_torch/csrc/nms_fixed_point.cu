@@ -37,6 +37,31 @@ constexpr int kWarps = 8;  // one class per warp; all build the bitmask
 constexpr float kLiveAbove = -1.5e38f;
 constexpr int kMaxDevices = 64;
 
+#ifdef WT_PHASE_CLOCK
+// Development build only (python -m watsor_tpu_torch.profile_step --path
+// nms): each block records %globaltimer and clock64 at its phase
+// boundaries, the time of the last warp to reach each; wt_phase_stamps
+// reads them back and clears them, wt_empty_kernel launches an empty
+// kernel the same way, the card's floor for one launch.
+constexpr int kStampBlocks = 1024;
+constexpr int kStamps = 6;
+__device__ unsigned long long g_stamps[kStampBlocks][2 * kStamps];
+
+__device__ __forceinline__ void phase_stamp(int k) {
+  const int b = blockIdx.y * gridDim.x + blockIdx.x;
+  if ((threadIdx.x & 31) != 0 || b >= kStampBlocks) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  atomicMax(&g_stamps[b][k], t);
+  atomicMax(&g_stamps[b][kStamps + k], (unsigned long long)clock64());
+}
+
+__global__ void empty_kernel() {}
+#define PHASE(k) phase_stamp(k)
+#else
+#define PHASE(k)
+#endif
+
 template <int kPerLane>
 __global__ void fixed_point_kernel(const float* __restrict__ scores,
                                    const float* __restrict__ iou,
@@ -48,6 +73,7 @@ __global__ void fixed_point_kernel(const float* __restrict__ scores,
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int b = blockIdx.y;
+  PHASE(0);
 
   // one warp per row; each lane keeps its kPerLane loads in flight at once
   const float* iou_b = iou + (size_t)b * M * M;
@@ -69,6 +95,7 @@ __global__ void fixed_point_kernel(const float* __restrict__ scores,
     }
   }
   __syncthreads();
+  PHASE(1);
 
   const int c = blockIdx.x * warps + warp;
   if (c >= C) return;  // warp-uniform
@@ -122,6 +149,7 @@ __global__ void fixed_point_kernel(const float* __restrict__ scores,
     const int j = k * 32 + lane;
     if (j < M) out[j] = (kept >> k) & 1u;
   }
+  PHASE(2);
 }
 
 // Makes `device` current for one launch and gives the caller back its own
@@ -194,3 +222,24 @@ extern "C" int wt_fixed_point_suppress(const float* scores, const float* iou,
     return launch<16>(scores, iou, keep, B, C, M, thr, device, stream);
   return launch<32>(scores, iou, keep, B, C, M, thr, device, stream);
 }
+
+#ifdef WT_PHASE_CLOCK
+// the stamps of the first `blocks` blocks, [blocks][2 * kStamps]
+// (globaltimer ns, then clock64 cycles), into host memory; then clears them
+extern "C" int wt_phase_stamps(void* host, int blocks) {
+  if (blocks <= 0 || blocks > kStampBlocks) return cudaErrorInvalidValue;
+  const size_t bytes = sizeof(g_stamps[0]) * blocks;
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, bytes);
+  void* dev = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&dev, g_stamps);
+  if (err == cudaSuccess) err = cudaMemset(dev, 0, sizeof(g_stamps));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return err;
+}
+
+extern "C" int wt_empty_kernel(int grid_x, int grid_y, int threads,
+                               cudaStream_t stream) {
+  empty_kernel<<<dim3(grid_x, grid_y), threads, 0, stream>>>();
+  return cudaGetLastError();
+}
+#endif

@@ -36,6 +36,31 @@ constexpr int kThreads = 128;
 constexpr int kMaxK = 1024;
 constexpr int kMaxDevices = 64;
 
+#ifdef WT_PHASE_CLOCK
+// Development build only (python -m watsor_tpu_torch.profile_step --path
+// nms): each block records %globaltimer and clock64 at its phase
+// boundaries, the time of the last warp to reach each; wt_phase_stamps
+// reads them back and clears them, wt_empty_kernel launches an empty
+// kernel the same way, the card's floor for one launch.
+constexpr int kStampBlocks = 1024;
+constexpr int kStamps = 6;
+__device__ unsigned long long g_stamps[kStampBlocks][2 * kStamps];
+
+__device__ __forceinline__ void phase_stamp(int k) {
+  const int b = blockIdx.y * gridDim.x + blockIdx.x;
+  if ((threadIdx.x & 31) != 0 || b >= kStampBlocks) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  atomicMax(&g_stamps[b][k], t);
+  atomicMax(&g_stamps[b][kStamps + k], (unsigned long long)clock64());
+}
+
+__global__ void empty_kernel() {}
+#define PHASE(k) phase_stamp(k)
+#else
+#define PHASE(k)
+#endif
+
 size_t smem_bytes(int K) {
   return (size_t)K * (sizeof(float4) + sizeof(float)) +
          (size_t)K * ((K + 31) / 32) * sizeof(uint32_t);
@@ -68,6 +93,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t set = blockIdx.x;  // one (image, class) candidate set
+  PHASE(0);
 
   for (int j = threadIdx.x; j < K; j += kThreads) {
     const float4 b = boxes[set * K + j];
@@ -75,6 +101,7 @@ __global__ void __launch_bounds__(kThreads)
     area[j] = box_area(b);
   }
   __syncthreads();
+  PHASE(1);
 
   // later[i] bit j: j > i and iou(i, j) > thr
   for (int i = warp; i < K; i += kThreads / 32) {
@@ -88,6 +115,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
+  PHASE(2);
   if (warp != 0) return;
 
   // lane w holds bits 32w..32w+31 of the keep mask
@@ -106,6 +134,7 @@ __global__ void __launch_bounds__(kThreads)
     if (j < K) out[set * K + j] = ((word >> lane) & 1u) ? scores[set * K + j]
                                                         : 0.f;
   }
+  PHASE(3);
 }
 
 // Makes `device` current for one launch and gives the caller back its own
@@ -159,3 +188,24 @@ extern "C" int wt_nms_suppress(const float* boxes, const float* scores,
       reinterpret_cast<const float4*>(boxes), scores, out, K, thr);
   return cudaGetLastError();
 }
+
+#ifdef WT_PHASE_CLOCK
+// the stamps of the first `blocks` blocks, [blocks][2 * kStamps]
+// (globaltimer ns, then clock64 cycles), into host memory; then clears them
+extern "C" int wt_phase_stamps(void* host, int blocks) {
+  if (blocks <= 0 || blocks > kStampBlocks) return cudaErrorInvalidValue;
+  const size_t bytes = sizeof(g_stamps[0]) * blocks;
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, bytes);
+  void* dev = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&dev, g_stamps);
+  if (err == cudaSuccess) err = cudaMemset(dev, 0, sizeof(g_stamps));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return err;
+}
+
+extern "C" int wt_empty_kernel(int grid_x, int grid_y, int threads,
+                               cudaStream_t stream) {
+  empty_kernel<<<dim3(grid_x, grid_y), threads, 0, stream>>>();
+  return cudaGetLastError();
+}
+#endif

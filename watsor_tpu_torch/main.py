@@ -89,6 +89,16 @@ def detector_spec_from_config(config, args):
     return model_name, watched or None, config.get('nms')
 
 
+def use_full_f32():
+    """Turn TF32 off for cuDNN's convolutions and cuBLAS's products in this
+    process. cuDNN runs f32 convolutions in TF32 by default, which moves an
+    f32 detector's raw outputs by about 1e-3 relative on the card
+    (chip_smoke.py's TF32 line, PERF.md), over the port's f32 bar of 5e-4;
+    TRT_FLOAT_PRECISION=32 asks for full f32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def _prometheus_metrics(data):
     """Render the /metrics JSON (reference shape) as Prometheus text
     exposition format — a watsor-tpu extension (`?format=prometheus`)
@@ -367,6 +377,8 @@ class TorchApplication:
             if dtype is None:
                 raise SystemExit('TRT_FLOAT_PRECISION must be 32 or 16, got '
                                  '{!r}'.format(precision))
+            if dtype == torch.float32:
+                use_full_f32()
         quantize_mode = os.environ.get('WATSOR_QUANTIZE') or None
         if quantize_mode not in (None, '0', 'int8', 'int8_full'):
             raise SystemExit('WATSOR_QUANTIZE must be int8 or int8_full, got '

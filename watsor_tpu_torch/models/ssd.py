@@ -193,10 +193,23 @@ def make_detect_batch(cfg, anchors_dev, raw_apply, normalize,
     return detect_batch
 
 
+def resolve_device(device=None):
+    """``device`` as a torch.device; None is the current CUDA device. With
+    no CUDA device visible, None raises: the port runs on the card unless
+    the caller asks for the CPU, and never falls back to it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: pass device='cpu' to "
+                           "build on the CPU")
+    return torch.device('cuda', torch.cuda.current_device())
+
+
 def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
-                   anchors=None, device='cpu') -> Detector:
-    """Build the model on ``device``, adopting ``variables`` (a flax-layout
-    tree of numpy arrays) or, without them, initializing from ``seed``.
+                   anchors=None, device=None) -> Detector:
+    """Build the model on ``device`` (None: the current CUDA device; pass
+    'cpu' for the CPU), adopting ``variables`` (a flax-layout tree of numpy
+    arrays) or, without them, initializing from ``seed``.
 
     ``anchors``: optional [A, 4] override (TFLite conversions carry the
     exact grid of the source graph)."""
@@ -205,7 +218,7 @@ def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
                                                  load_variables)
 
     cfg = config
-    device = torch.device(device)
+    device = resolve_device(device)
     model = SSD(cfg)
     if variables is None:
         init_weights(model, torch.Generator().manual_seed(seed))

@@ -31,7 +31,8 @@ import torch
 from watsor_tpu_torch.models.mobilenet_v2 import TAP_BLOCK, block_plan, \
     conv_same
 from watsor_tpu_torch.models.quantize import _quantize_kernel
-from watsor_tpu_torch.models.ssd import apply_heads, make_detect_batch
+from watsor_tpu_torch.models.ssd import (apply_heads, make_detect_batch,
+                                         resolve_device)
 from watsor_tpu_torch.models.ssd_fused import fold_unit
 from watsor_tpu_torch.models.weights import hwio_to_oihw
 from watsor_tpu_torch.ops.int8_matmul import int8_matmul_requant
@@ -111,12 +112,13 @@ def calibrate(detector, images_u8, batch_limit=8):
     return {path: float(value) for path, value in maxima.items()}
 
 
-def build_pack(variables, absmax, cfg, device='cpu'):
+def build_pack(variables, absmax, cfg, device=None):
     """Folded int8 weight pack + per-unit output scales from calibration
-    (``absmax``: {path tuple: float}, as ``calibrate`` returns it)."""
+    (``absmax``: {path tuple: float}, as ``calibrate`` returns it) on
+    ``device`` (None: the current CUDA device; pass 'cpu' for the CPU)."""
+    device = resolve_device(device)
     params = variables['params']
     stats = variables['batch_stats']
-    device = torch.device(device)
 
     def tensor(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)

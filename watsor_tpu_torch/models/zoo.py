@@ -10,9 +10,9 @@ import logging
 import os
 
 import numpy as np
-import torch
 
-from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
+from watsor_tpu_torch.models.ssd import (SSDConfig, build_detector,
+                                         resolve_device)
 from watsor_tpu_torch.models.weights import load_npz
 
 _LOGGER = logging.getLogger(__name__)
@@ -43,13 +43,14 @@ def load_weights(model_path, name):
 
 def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
                    active_labels=None, dtype=None, nms_mode=None,
-                   device='cpu'):
-    """Build a detector on ``device``, adopting stored weights when
-    present. ``active_labels`` restricts post-processing to these 1-based
+                   device=None):
+    """Build a detector on ``device`` (None: the current CUDA device; pass
+    'cpu' for the CPU), adopting stored weights when present. ``active_labels`` restricts post-processing to these 1-based
     labels; ``dtype`` overrides the activation dtype; ``nms_mode`` picks
     the NMS mode (fused or per-class)."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError('model {!r} {}'.format(name, _NOT_PORTED))
+    device = resolve_device(device)
     config = MODEL_REGISTRY[name]
     if active_labels:
         config = config._replace(active_labels=tuple(sorted(active_labels)))
@@ -85,4 +86,4 @@ def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
             "(fine for benchmarks/synthetic shapes, not for real cameras)",
             name, model_path)
     return build_detector(config, variables=variables, seed=seed,
-                          anchors=anchors, device=torch.device(device))
+                          anchors=anchors, device=device)

@@ -595,10 +595,157 @@ def profile_launch_cost_int8(device, results):
           'pallas_suppress {:.2f} us'.format(mm_us, nms_us), flush=True)
 
 
+# the entry points of a suppression kernel built with WT_PHASE_CLOCK
+_PHASE_SIGNATURES = {
+    'wt_phase_stamps': [ctypes.c_void_p, ctypes.c_int],
+    'wt_empty_kernel': [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p]}
+_STAMPS = 6                       # kStamps of the kernels' sources
+
+
+def phase_split(lib, run, blocks, phases, reps=20):
+    """Per-phase time of a kernel built with WT_PHASE_CLOCK: ``run``
+    launches it once over ``blocks`` blocks; each block stamps
+    %globaltimer and clock64 at len(phases) + 1 boundaries. Returns, as
+    medians over ``reps`` launches, each phase's median and largest time
+    over the blocks (ns from %globaltimer, and cycles), and the span from
+    the first block's start to the last block's end."""
+    stamps = np.zeros((blocks, 2 * _STAMPS), np.uint64)
+    _build.check(lib.wt_phase_stamps(stamps.ctypes.data, blocks), 'stamps')
+    n = len(phases) + 1
+    rows = defaultdict(list)
+    for _ in range(reps):
+        run()
+        torch.cuda.synchronize()
+        _build.check(lib.wt_phase_stamps(stamps.ctypes.data, blocks),
+                     'stamps')
+        ns = stamps[:, :n].astype(np.int64)
+        cycles = stamps[:, _STAMPS:_STAMPS + n].astype(np.int64)
+        if (ns == 0).any():
+            raise AssertionError('a block missed a phase stamp')
+        for p, name in enumerate(phases):
+            d_ns = ns[:, p + 1] - ns[:, p]
+            d_cyc = cycles[:, p + 1] - cycles[:, p]
+            rows[name + '_ns'].append(float(np.median(d_ns)))
+            rows[name + '_max_ns'].append(float(d_ns.max()))
+            rows[name + '_cycles'].append(float(np.median(d_cyc)))
+            rows[name + '_max_cycles'].append(float(d_cyc.max()))
+        rows['span_ns'].append(float(ns[:, -1].max() - ns[:, 0].min()))
+        rows['block_ns'].append(float(np.median(ns[:, -1] - ns[:, 0])))
+        rows['block_cycles'].append(float(np.median(cycles[:, -1] -
+                                                    cycles[:, 0])))
+    return {k: statistics.median(v) for k, v in rows.items()}
+
+
+def _empty_launch(lib, grid_x, grid_y, threads):
+    def run():
+        _build.check(lib.wt_empty_kernel(
+            grid_x, grid_y, threads,
+            torch.cuda.current_stream().cuda_stream), 'empty kernel')
+    return run
+
+
+def _suppression_inputs(rng, B, C, M, per_class):
+    """chip_smoke.py's suppression inputs: scores on a 1/64 grid (many
+    ties), boxes of side 0.02 to 0.4; per class sorted when ``per_class``
+    (kernel 3's top-k), else one set of boxes an image (kernel 1's
+    union)."""
+    s = np.floor(rng.uniform(0, 1, (B, C, M)) * 64) / 64
+    shape = (B, C, M) if per_class else (B, M)
+    if per_class:
+        s = -np.sort(-s, axis=-1)
+    yx = rng.uniform(0, 1, shape + (2,))
+    hw = rng.uniform(0.02, 0.4, shape + (2,))
+    boxes = np.concatenate([yx, yx + hw], -1)
+    return (torch.tensor(s, dtype=torch.float32, device='cuda'),
+            torch.tensor(boxes, dtype=torch.float32, device='cuda'))
+
+
+def _report(results, key, row, text):
+    results[key] = row
+    print(text + ': ' + ', '.join(
+        '{} {:.4g}'.format(k, v) if isinstance(v, float) else
+        '{} {}'.format(k, v) for k, v in row.items()), flush=True)
+
+
+def profile_nms(device, results):
+    """The two suppression kernels at the paths' shapes (kernel 1 at
+    [8, C, 128], kernel 3 at [8, C, 100]; C = 2 and 90): device time
+    (CUDA-graph replay) and CUDA-event time with host launches, an empty
+    kernel launched with the same grid the same ways, and the phase split
+    of a WT_PHASE_CLOCK build."""
+    from watsor_tpu_torch.ops import nms_fixed_point, nms_suppress
+    from watsor_tpu_torch.ops.boxes import iou_matrix
+    rng = np.random.default_rng(0)
+    fp = _build.load('nms_fixed_point_phases', dict(
+        nms_fixed_point._SIGNATURES, **_PHASE_SIGNATURES),
+        source=os.path.join(_build.CSRC_DIR, 'nms_fixed_point.cu'),
+        defines=('WT_PHASE_CLOCK',))
+    sup = _build.load('nms_suppress_phases', dict(
+        nms_suppress._SIGNATURES, **_PHASE_SIGNATURES),
+        source=os.path.join(_build.CSRC_DIR, 'nms_suppress.cu'),
+        defines=('WT_PHASE_CLOCK',))
+    for C in (2, 90):
+        scores, boxes = _suppression_inputs(rng, BATCH, C, 128, False)
+        iou = iou_matrix(boxes, boxes).contiguous()
+        keep = torch.empty(scores.shape, dtype=torch.bool, device=device)
+        grid = ((C + 7) // 8, BATCH, 256)
+
+        def dev_run(keep=keep, scores=scores, iou=iou, C=C):
+            _build.check(fp.wt_fixed_point_suppress(
+                scores.data_ptr(), iou.data_ptr(), keep.data_ptr(), BATCH, C,
+                128, 0.6, device.index,
+                torch.cuda.current_stream().cuda_stream), 'phases build')
+        want = nms_fixed_point.fixed_point_suppress_plain(scores, iou, 0.6)
+        dev_run()
+        if not torch.equal(keep, want):
+            raise AssertionError('phase build of kernel 1 differs')
+        row = {'kept': int(want.sum()), 'blocks': grid[0] * grid[1]}
+        kernel = lambda: nms_fixed_point.fixed_point_suppress(  # noqa: E731
+            scores, iou, 0.6)
+        with_iou = lambda: nms_fixed_point.fixed_point_suppress(  # noqa
+            scores, iou_matrix(boxes, boxes), 0.6)
+        empty = _empty_launch(fp, *grid)
+        row.update(device_ms=graph_ms(kernel), events_ms=events_ms(kernel),
+                   with_iou_device_ms=graph_ms(with_iou),
+                   empty_device_ms=graph_ms(empty),
+                   empty_events_ms=events_ms(empty))
+        row.update(phase_split(fp, dev_run, grid[0] * grid[1],
+                               ('bitmask', 'walk')))
+        _report(results, 'fixed_point_suppress_C{}'.format(C), row,
+                'fixed_point_suppress B={} C={} M=128'.format(BATCH, C))
+    for C in (2, 90):
+        scores, boxes = _suppression_inputs(rng, BATCH, C, 100, True)
+        out = torch.empty_like(scores)
+
+        def dev_run(out=out, scores=scores, boxes=boxes, C=C):
+            _build.check(sup.wt_nms_suppress(
+                boxes.data_ptr(), scores.data_ptr(), out.data_ptr(),
+                BATCH * C, 100, 0.6, device.index,
+                torch.cuda.current_stream().cuda_stream), 'phases build')
+        want = nms_suppress.pallas_suppress_plain(boxes, scores, 0.6)
+        dev_run()
+        if not torch.equal(out, want):
+            raise AssertionError('phase build of kernel 3 differs')
+        row = {'kept': int((want > 0).sum()), 'blocks': BATCH * C}
+        kernel = lambda: nms_suppress.pallas_suppress(  # noqa: E731
+            boxes, scores, 0.6)
+        empty = _empty_launch(sup, BATCH * C, 1, 128)
+        row.update(device_ms=graph_ms(kernel), events_ms=events_ms(kernel),
+                   empty_device_ms=graph_ms(empty),
+                   empty_events_ms=events_ms(empty))
+        row.update(phase_split(sup, dev_run, BATCH * C,
+                               ('stage', 'triangle', 'walk')))
+        _report(results, 'pallas_suppress_C{}'.format(C), row,
+                'pallas_suppress B={} C={} K=100'.format(BATCH, C))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--path', choices=('main', 'int8'), default='main',
-                        help='the main path (fused walk) or the int8 path')
+    parser.add_argument('--path', choices=('main', 'int8', 'nms'),
+                        default='main',
+                        help='the main path (fused walk), the int8 path, '
+                             'or the two suppression kernels alone')
     parser.add_argument('--min-blocks', default=str(fused_block.MIN_BLOCKS),
                         help='fused-block launch plans to time: values of '
                              'the plan\'s MIN_BLOCKS, comma list')
@@ -629,6 +776,10 @@ def main(argv=None):
     print('torch {}, CUDA {}'.format(torch.__version__, torch.version.cuda),
           flush=True)
     results = {'card': card, 'batch': BATCH, 'path': args.path}
+    if args.path == 'nms':
+        profile_nms(device, results)
+        print(json.dumps(results), flush=True)
+        return
     prof = profile_models(device, results, args.steps, args.path)
     if args.trace:
         prof.export_chrome_trace(args.trace)
