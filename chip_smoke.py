@@ -8,17 +8,20 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
 ``watsor_tpu_torch/csrc/`` (one nvcc each, all at once), then:
 
 1. holds each kernel against its plain PyTorch version at its path's
-   shapes (fixed_point_suppress, pallas_suppress and int8_matmul_requant
-   bit for bit; fused_inverted_residual within a stated tolerance), times
-   both with CUDA events, times cuDNN's three-convolution block beside
-   fused_inverted_residual at each of its 12 shapes, and works out each
-   kernel's bound (the least time the card could take for its work);
+   shapes (fixed_point_suppress, from the union's boxes, at C = 2, C = 90
+   and a ragged M, and pallas_suppress at C = 2 and C = 90, bit for bit;
+   int8_matmul_requant bit for bit; fused_inverted_residual within a
+   stated tolerance), times both with CUDA events, times cuDNN's
+   three-convolution block beside fused_inverted_residual at each of its
+   12 shapes, and works out each kernel's bound (the least time the card
+   could take for its work);
 2. drives the detection main path (ssd_mobilenet_v2 at 300x300, bf16,
    nms fused_exact, fused blocks, device filters) through
    TorchDetectorBackend inside an ObjectDetector fed from FrameBuffers of
    1920x1080 frames, checks what it wrote and that both of its kernels
-   ran (12 fused_inverted_residual launches a forward), and holds the
-   step's raw outputs against the f32 plain model;
+   ran (12 fused_inverted_residual launches a forward), holds the step's
+   raw outputs against the f32 plain model, and prints the f32 plain
+   model's TF32 gap (raw outputs with TF32 on against off);
    then the int8 path the same way (WATSOR_QUANTIZE=int8_full,
    WATSOR_INT8_POINTWISE=pallas, calibrated on seeded frames, nms exact),
    with 38 int8_matmul_requant launches a forward and the raw outputs'
@@ -28,7 +31,9 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    path with ``nms: exact``;
 
 and last checks that nothing of JAX, and nothing of the JAX package
-``watsor_tpu``, was imported on the way. It uses one
+``watsor_tpu``, was imported on the way. The f32 comparisons run with TF32
+off; the paths and the boots run under the process defaults, as users
+run them. It uses one
 card, the first visible one. Any failed phase makes the script exit
 non-zero without the final line. Weights are random, from a fixed seed.
 Output: versions, the card, build time, per-phase lines, a JSON line of
@@ -118,9 +123,8 @@ def phase_kernels(device, results):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     from watsor_tpu_torch.ops import fused_block, nms_fixed_point
-    from watsor_tpu_torch.ops.boxes import iou_matrix
     from watsor_tpu_torch.workload import (FUSED_SHAPES, WATCHED, Bound,
-                                           cudnn_block)
+                                           cudnn_block, fixed_point_work)
 
     rng = np.random.default_rng(0)
     M = 128
@@ -128,35 +132,34 @@ def phase_kernels(device, results):
              'source': 'watsor_tpu_torch/csrc/nms_fixed_point.cu',
              'replaces': 'watsor_tpu/ops/nms_pallas.py:158',
              'max_abs_err': 0.0, 'library_ms': None}
-    for C in (2, 90):
+    # the main path's union (C = 2), all 90 classes, and a ragged union
+    for C, m in ((2, M), (90, M), (2, 100)):
         # scores on a 1/64 grid: many exact ties across candidates
-        s = np.floor(rng.uniform(0, 1, (BATCH, C, M)) * 64) / 64
-        yx = rng.uniform(0, 1, (BATCH, M, 2))
-        hw = rng.uniform(0.02, 0.4, (BATCH, M, 2))
+        s = np.floor(rng.uniform(0, 1, (BATCH, C, m)) * 64) / 64
+        yx = rng.uniform(0, 1, (BATCH, m, 2))
+        hw = rng.uniform(0.02, 0.4, (BATCH, m, 2))
         boxes = torch.tensor(np.concatenate([yx, yx + hw], -1),
                              dtype=torch.float32, device=device)
         scores = torch.tensor(s, dtype=torch.float32, device=device)
-        iou = iou_matrix(boxes, boxes).contiguous()
-        got = nms_fixed_point.fixed_point_suppress(scores, iou, 0.6)
-        want = nms_fixed_point.fixed_point_suppress_plain(scores, iou, 0.6)
+        got = nms_fixed_point.fixed_point_suppress(scores, boxes, 0.6)
+        want = nms_fixed_point.fixed_point_suppress_plain(scores, boxes, 0.6)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(
-                'fixed_point_suppress C={}: {} of {} keep bits differ'.format(
-                    C, int((got != want).sum()), got.numel()))
+                'fixed_point_suppress C={} M={}: {} of {} keep bits differ'
+                .format(C, m, int((got != want).sum()), got.numel()))
         ms = time_ms(lambda: nms_fixed_point.fixed_point_suppress(
-            scores, iou, 0.6))
+            scores, boxes, 0.6))
         plain_ms = time_ms(lambda: nms_fixed_point.fixed_point_suppress_plain(
-            scores, iou, 0.6), reps=5, inner=2)
+            scores, boxes, 0.6), reps=5, inner=2)
+        nbytes, ops = fixed_point_work(BATCH, C, m)
+        bound = Bound().add(nbytes, f32=ops)
         log('phase1 fixed_point_suppress B={} C={} M={}: bit-identical, '
-            'kept {}, kernel {:.4f} ms, plain {:.4f} ms'.format(
-                BATCH, C, M, int(got.sum()), ms, plain_ms))
-        if C == len(WATCHED):            # the main path's shape
+            'kept {}, kernel {:.4f} ms, plain {:.4f} ms, bound {:.6f} ms'
+            .format(BATCH, C, m, int(got.sum()), ms, plain_ms, bound.ms))
+        if (C, m) == (len(WATCHED), M):       # the main path's shape
             entry.update(ms=ms, plain_ms=plain_ms)
-            # scores and IoU in, keep bits out; each of the M greedy steps
-            # of each class scans M candidates twice (argmax, suppression)
-            Bound().add(4 * (scores.numel() + iou.numel()) + got.numel(),
-                        f32=2 * BATCH * C * M * M).update(entry)
+            bound.update(entry)
     results.append(entry)
 
     entry = {'name': 'fused_inverted_residual', 'route': 'cuda',
@@ -228,7 +231,7 @@ def phase_kernels_int8_path(device, results, rng):
     from watsor_tpu_torch.ops import int8_matmul, nms_suppress
     from watsor_tpu_torch.workload import (WATCHED, Bound, int8_call_work,
                                            int8_pointwise_calls,
-                                           int_mm_operand)
+                                           int_mm_operand, suppress_work)
 
     K = 100                              # per_class_k
     entry = {'name': 'pallas_suppress', 'route': 'cuda',
@@ -255,15 +258,14 @@ def phase_kernels_int8_path(device, results, rng):
                                                           0.6))
         plain_ms = time_ms(lambda: nms_suppress.pallas_suppress_plain(
             boxes, scores, 0.6), reps=5, inner=2)
+        nbytes, ops = suppress_work(BATCH, C, K)
+        bound = Bound().add(nbytes, f32=ops)
         log('phase1 pallas_suppress B={} C={} K={}: bit-identical, kept {}, '
-            'kernel {:.4f} ms, plain {:.4f} ms'.format(
-                BATCH, C, K, int((got > 0).sum()), ms, plain_ms))
+            'kernel {:.4f} ms, plain {:.4f} ms, bound {:.6f} ms'.format(
+                BATCH, C, K, int((got > 0).sum()), ms, plain_ms, bound.ms))
         if C == len(WATCHED):            # the int8 path's shape
             entry.update(ms=ms, plain_ms=plain_ms)
-            # boxes and scores in, scores out; one IoU (about 12 f32
-            # operations) for each of the K(K-1)/2 pairs of each class
-            Bound().add(4 * (boxes.numel() + 2 * scores.numel()),
-                        f32=12 * BATCH * C * K * (K - 1) // 2).update(entry)
+            bound.update(entry)
     results.append(entry)
 
     # library_ms: torch._int_mm, the int8 product to int32 alone (GEMM

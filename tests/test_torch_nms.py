@@ -35,8 +35,42 @@ def _jax_keep(s, iou, thr):
 
 
 def _torch_keep(s, iou, thr):
-    return t_fp.fixed_point_suppress(torch.tensor(s), torch.tensor(iou),
-                                     thr).numpy()
+    """The port's plain fixed point over an IoU matrix."""
+    return t_fp.fixed_point_keep(torch.tensor(s), torch.tensor(iou),
+                                 thr).numpy()
+
+
+def _union_case(seed, B, C, M, grid=None, dead=0):
+    """Union scores [B, C, M] (on a 1/grid lattice when ``grid``, so many
+    tie; ``dead`` candidates of each class retired at -inf) and the union's
+    boxes [B, M, 4]."""
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(0, 1, (B, C, M))
+    if grid:
+        s = np.floor(s * grid) / grid
+    if dead:
+        for b in range(B):
+            for c in range(C):
+                s[b, c, rng.choice(M, dead, replace=False)] = -np.inf
+    return s.astype(np.float32), _boxes(rng, (B, M))
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+@pytest.mark.parametrize('M', [128, 100])
+@pytest.mark.parametrize('grid,dead', [(None, 0), (16, 5)])
+def test_fixed_point_suppress_from_boxes_matches_jax(seed, M, grid, dead):
+    """The port's entry, scores and the union's boxes in, against JAX's
+    iou_matrix followed by the Pallas kernel (interpret mode): keep-masks
+    bit-identical, at M = 128 and at an M that is not a multiple of 32,
+    with tied scores and dead candidates."""
+    s, boxes = _union_case(seed, 2, 5, M, grid, dead)
+    iou = np.asarray(j_boxes.iou_matrix(jnp.asarray(boxes),
+                                        jnp.asarray(boxes)))
+    want = _jax_keep(s, iou, 0.5)
+    got = t_fp.fixed_point_suppress(torch.from_numpy(s),
+                                    torch.from_numpy(boxes), 0.5).numpy()
+    assert 0 < want.sum() < want.size
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize('seed', [0, 1, 2])
@@ -87,10 +121,11 @@ def test_fixed_point_wrapper_on_cpu_runs_plain():
     s = torch.from_numpy(rng.uniform(0, 1, (1, 2, 40)).astype(np.float32))
     boxes = torch.from_numpy(_boxes(rng, (1, 40)))
     from watsor_tpu_torch.ops.boxes import iou_matrix
-    iou = iou_matrix(boxes, boxes)
     before = t_fp.fixed_point_suppress.launches
-    assert torch.equal(t_fp.fixed_point_suppress(s, iou, 0.5),
-                       t_fp.fixed_point_suppress_plain(s, iou, 0.5))
+    got = t_fp.fixed_point_suppress(s, boxes, 0.5)
+    assert torch.equal(got, t_fp.fixed_point_suppress_plain(s, boxes, 0.5))
+    assert torch.equal(got, t_fp.fixed_point_keep(s, iou_matrix(boxes, boxes),
+                                                  0.5))
     assert t_fp.fixed_point_suppress.launches == before
 
 
@@ -239,35 +274,74 @@ def test_per_class_nms_pads_and_refuses_fused_modes():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
-    """The CUDA kernel against the plain version, bit for bit, with tied
-    scores, at the main path's shapes (run on the card: pytest -m cuda)."""
+    """The CUDA kernel (scores and the union's boxes in) against the plain
+    version, bit for bit, with tied scores and dead candidates, at the
+    main path's shapes, at ragged M and at every row width up to M = 1000
+    (run on the card: pytest -m cuda)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    from watsor_tpu_torch.ops.boxes import iou_matrix
     device = torch.device('cuda', 0)
-    rng = np.random.default_rng(9)
-    for B, C, M in ((8, 2, 128), (8, 90, 128), (2, 3, 1000)):
-        s = np.floor(rng.uniform(0, 1, (B, C, M)) * 32) / 32
-        scores = torch.tensor(s, dtype=torch.float32, device=device)
-        boxes = torch.from_numpy(_boxes(rng, (B, M))).to(device)
-        iou = iou_matrix(boxes, boxes).contiguous()
-        got = t_fp.fixed_point_suppress(scores, iou, 0.5)
-        assert torch.equal(got, t_fp.fixed_point_suppress_plain(scores, iou,
-                                                                0.5))
+    for B, C, M, dead in ((8, 2, 128, 0), (8, 90, 128, 0), (8, 2, 100, 3),
+                          (3, 5, 33, 1), (2, 3, 200, 0), (2, 3, 300, 7),
+                          (2, 3, 1000, 0), (1, 1, 1, 0)):
+        s, boxes = _union_case(B * M + C, B, C, M, 32, dead)
+        scores = torch.from_numpy(s).to(device)
+        b = torch.from_numpy(boxes).to(device)
+        before = t_fp.fixed_point_suppress.launches
+        got = t_fp.fixed_point_suppress(scores, b, 0.5)
+        assert t_fp.fixed_point_suppress.launches == before + 1
+        want = t_fp.fixed_point_suppress_plain(scores, b, 0.5)
+        assert torch.equal(got, want), (B, C, M)
 
 
 @pytest.mark.cuda
 def test_suppress_kernel_matches_plain_on_the_card():
     """The per-class kernel against the plain version, bit for bit, with
-    tied scores, at the int8 path's shapes and at K = 1000 (run on the
-    card: pytest -m cuda)."""
+    tied scores, at the int8 path's shapes, at ragged K and at every row
+    width up to K = 1000 (run on the card: pytest -m cuda)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     device = torch.device('cuda', 0)
     for B, C, K, grid in ((8, 2, 100, 32), (8, 90, 100, 32), (2, 3, 1000, 8),
-                          (3, 5, 33, None)):
+                          (3, 5, 33, None), (2, 3, 200, 8), (2, 3, 300, None),
+                          (1, 1, 1, None)):
         boxes, scores = _sorted_candidates(B * K, B, C, K, grid)
         b = torch.from_numpy(boxes).to(device)
         s = torch.from_numpy(scores).to(device)
         got = t_sup.pallas_suppress(b, s, 0.5)
         assert torch.equal(got, t_sup.pallas_suppress_plain(b, s, 0.5))
+
+
+@pytest.mark.cuda
+def test_kernels_decide_the_threshold_exactly_on_the_card():
+    """Boxes on a 1/16 grid repeat their IoU values: with the threshold at
+    the most frequent one, and at the float below it, both suppression
+    kernels (which test the IoU without dividing) equal their plain
+    versions bit for bit (run on the card: pytest -m cuda)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from watsor_tpu_torch.ops.boxes import iou_matrix
+    device = torch.device('cuda', 0)
+    rng = np.random.default_rng(3)
+    B, C, M = 4, 3, 128
+    yx = rng.integers(0, 12, (B, M, 2)) / 16
+    hw = rng.integers(1, 5, (B, M, 2)) / 16
+    boxes = torch.tensor(np.concatenate([yx, yx + hw], -1),
+                         dtype=torch.float32)
+    iou = iou_matrix(boxes, boxes).numpy()
+    values, counts = np.unique(iou[(iou > 0.2) & (iou < 0.9)],
+                               return_counts=True)
+    at = values[counts.argmax()]
+    assert counts.max() > 10
+    scores = np.floor(rng.uniform(0, 1, (B, C, M)) * 16) / 16
+    s = torch.tensor(scores, dtype=torch.float32, device=device)
+    b = boxes.to(device)
+    top = torch.tensor(-np.sort(-scores, axis=-1), dtype=torch.float32,
+                       device=device)
+    per_class = b[:, None].expand(B, C, M, 4).contiguous()
+    for thr in (float(at), float(np.nextafter(at, np.float32(-1)))):
+        assert torch.equal(t_fp.fixed_point_suppress(s, b, thr),
+                           t_fp.fixed_point_suppress_plain(s, b, thr)), thr
+        assert torch.equal(t_sup.pallas_suppress(per_class, top, thr),
+                           t_sup.pallas_suppress_plain(per_class, top, thr)), \
+            thr

@@ -122,3 +122,21 @@ def test_profile_step_int8_path_runs_on_the_card():
     assert result['path'] == 'int8' and result['detect_step_device_ms'] > 0
     assert set(result['launch_host_us']) == {'int8_matmul_requant',
                                              'pallas_suppress'}
+
+
+@pytest.mark.cuda
+def test_profile_step_nms_path_runs_on_the_card():
+    """The suppression kernels' profile completes: device times, an empty
+    launch and each kernel's phase split (run on the card: pytest -m
+    cuda)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU with nvcc')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'watsor_tpu_torch.profile_step', '--path',
+         'nms'], capture_output=True, text=True, timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in ('fixed_point_suppress_C2', 'pallas_suppress_C2'):
+        row = result[key]
+        assert 0 < row['empty_device_ms'] < row['v2_device_ms']
+        assert row['v2_walk_ns'] > 0 and row['v2_span_ns'] > 0

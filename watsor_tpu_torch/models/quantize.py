@@ -94,9 +94,10 @@ def quantization_error(params):
 def build_quantized_detector(config=None, variables=None, seed=0,
                              anchors=None, device=None):
     """SSD detector whose conv kernels sit on ``device`` (None: the current
-    CUDA device; pass 'cpu' for the CPU) as int8 values and scales (OIHW, scales along O); each step dequantizes them in the
-    activation dtype, as the JAX step does inside its jit, and runs the
-    float model on them. Detector.variables is the quantized tree."""
+    CUDA device; pass 'cpu' for the CPU) as int8 values and scales (OIHW,
+    scales along O); each step dequantizes them in the activation dtype,
+    as the JAX step does inside its jit, and runs the float model on them.
+    Detector.variables is the quantized tree."""
     from torch.func import functional_call
 
     from watsor_tpu_torch.models.mobilenet_v2 import ConvBNReLU6

@@ -45,9 +45,10 @@ def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
                    active_labels=None, dtype=None, nms_mode=None,
                    device=None):
     """Build a detector on ``device`` (None: the current CUDA device; pass
-    'cpu' for the CPU), adopting stored weights when present. ``active_labels`` restricts post-processing to these 1-based
-    labels; ``dtype`` overrides the activation dtype; ``nms_mode`` picks
-    the NMS mode (fused or per-class)."""
+    'cpu' for the CPU), adopting stored weights when present.
+    ``active_labels`` restricts post-processing to these 1-based labels;
+    ``dtype`` overrides the activation dtype; ``nms_mode`` picks the NMS
+    mode (fused or per-class)."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError('model {!r} {}'.format(name, _NOT_PORTED))
     device = resolve_device(device)

@@ -3,9 +3,10 @@ watsor_tpu/ops/nms.py).
 
 The fused formulation: one class-agnostic candidate union (the top
 ``union_m`` anchors by max-class logit), decode and f32 sigmoid on that
-union only, one shared IoU matrix, suppression for every class at once,
-and a top-k merge over classes. The classic per-class formulation
-(``batched_class_aware_nms``, modes ``exact``, ``fast`` and ``pallas``):
+union only, one overlap relation shared by every class, suppression for
+every class at once, and a top-k merge over classes. The classic
+per-class formulation (``batched_class_aware_nms``, modes ``exact``,
+``fast`` and ``pallas``):
 the top-k of each class over every decoded anchor, suppression within
 each class, and the same merge. Ties in every top-k step go to the lower
 index, as ``lax.top_k`` orders them: a stable descending sort gives that
@@ -16,8 +17,10 @@ Fused suppression modes:
                      candidate overlaps it (Fast-NMS);
   ``greedy``         classic greedy NMS, the exact fixed point;
   ``greedy_pallas``  the same result; both greedy modes run
-                     ops/nms_fixed_point.fixed_point_suppress, the CUDA
-                     kernel on the card.
+                     ops/nms_fixed_point.fixed_point_suppress over the
+                     union's boxes, the CUDA kernel on the card, which
+                     builds the overlap relation itself: no [B, M, M]
+                     tensor.
 """
 
 import torch
@@ -69,15 +72,16 @@ def _fused_suppress_merge(union_boxes, s, iou_threshold, score_threshold,
     """Suppression over the union ([B, M, 4] boxes, [B, C, M] class-major
     scores) and the merge over classes."""
     B, C, M = s.shape
-    iou = iou_matrix(union_boxes, union_boxes)                   # [B, M, M]
     if suppression in ('greedy', 'greedy_pallas'):
-        suppressed = ~fixed_point_suppress(s, iou, iou_threshold)
+        # on the card the kernel builds the overlap relation from the boxes
+        suppressed = ~fixed_point_suppress(s, union_boxes, iou_threshold)
     elif suppression == 'fast':
         # higher[b, c, i, j]: candidate i outranks j for class c
         idx = torch.arange(M, device=s.device)
         higher = (s[:, :, :, None] > s[:, :, None, :]) | \
             ((s[:, :, :, None] == s[:, :, None, :]) &
              (idx[:, None] < idx[None, :]))
+        iou = iou_matrix(union_boxes, union_boxes)               # [B, M, M]
         overlap = (iou > iou_threshold)[:, None, :, :]
         suppressed = (higher & overlap).any(dim=2)               # [B, C, M]
     else:

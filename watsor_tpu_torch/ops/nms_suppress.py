@@ -45,6 +45,18 @@ def pallas_suppress_plain(top_boxes, top_scores, iou_threshold=0.6):
     return torch.where(keep, top_scores, top_scores.new_zeros(()))
 
 
+def launch(lib, top_boxes, top_scores, out, iou_threshold):
+    """Launch the kernel of ``lib`` (csrc/nms_suppress.cu, or another build
+    of it) on checked tensors, into ``out``."""
+    B, C, K = top_scores.shape
+    device = top_scores.device
+    _build.check(lib.wt_nms_suppress(
+        top_boxes.data_ptr(), top_scores.data_ptr(), out.data_ptr(), B * C,
+        K, float(iou_threshold), device.index,
+        torch.cuda.current_stream(device).cuda_stream),
+        'pallas_suppress launch')
+
+
 def pallas_suppress(top_boxes, top_scores, iou_threshold=0.6):
     """Surviving scores [B, C, K]: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
@@ -73,13 +85,8 @@ def pallas_suppress(top_boxes, top_scores, iou_threshold=0.6):
         raise ValueError('pallas_suppress: unsupported shape {}'.format(
             tuple(top_scores.shape)))
     out = torch.empty_like(top_scores)
-    lib = _build.load('nms_suppress', _SIGNATURES)
-    device = top_scores.device
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _build.check(lib.wt_nms_suppress(
-        top_boxes.data_ptr(), top_scores.data_ptr(), out.data_ptr(), B * C,
-        K, float(iou_threshold), device.index, stream),
-        'pallas_suppress launch')
+    launch(_build.load('nms_suppress', _SIGNATURES), top_boxes, top_scores,
+           out, iou_threshold)
     pallas_suppress.launches += 1
     return out
 

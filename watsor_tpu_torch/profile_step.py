@@ -1,6 +1,6 @@
 """Step profile of the port's main path on one CUDA card.
 
-    python -m watsor_tpu_torch.profile_step [--path main|int8]
+    python -m watsor_tpu_torch.profile_step [--path main|int8|nms]
                                             [--min-blocks 132,264]
                                             [--baseline OTHER_CHECKOUT]
                                             [--int8-plans]
@@ -10,7 +10,8 @@ Drives a workload of chip_smoke.py (``watsor_tpu_torch.workload``) at
 batch 8 and prints a line per measurement, then all of them as one JSON
 object on the last line. ``--path main`` (the default) profiles the fused
 walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
-(int8_full, pointwise units through the kernel) with ``nms: exact``:
+(int8_full, pointwise units through the kernel) with ``nms: exact``;
+``--path nms`` only the two suppression kernels:
 
 - the forward of the plain bf16 model (convolutions with BatchNorm) and of
   the path's walk, as device time (CUDA-graph replay, which leaves out the
@@ -34,14 +35,23 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
   with ``--int8-plans`` every launch plan of the kernel at each shape; the
   per-class suppression at C = 2 and C = 90, kernel against plain version;
 - the host's cost of one launch through each of the path's kernel
-  wrappers (checks, output allocation, the ctypes call), at its shapes.
+  wrappers (checks, output allocation, the ctypes call), at its shapes;
+- nms: each suppression kernel at its path's shape and at C = 90, device
+  and CUDA-event time, an empty kernel launched with the same grid (the
+  card's floor for a launch), and the per-phase split of a build with
+  WT_PHASE_CLOCK (each block's %globaltimer and clock64 at its phase
+  boundaries).
 
 ``--baseline`` takes another checkout, unpacked with ``git archive``, and
 builds its kernel of the path from its ``csrc/`` beside this one's: on the
 main path its fused-block kernel, bound with the C entry of the second
 version (a launch plan from ``ops/fused_block.py plan_launch``); on the
 int8 path its int8 kernel, bound with the C entry of the first version
-(no plan). Versions take turns A B B A.
+(no plan); on the main path also its fixed_point_suppress with the IoU
+matrix its first version reads (the NMS stage, the detect step and a
+profiler window with it); for nms its two suppression kernels (kernel 1
+with the IoU matrix), with their phase split where its sources have
+WT_PHASE_CLOCK. Versions take turns A B B A.
 
 Every time is a median. The card's name and power limit head the output;
 compare numbers only within one run.
@@ -151,9 +161,12 @@ def log(results, key, value, text):
     print(text, flush=True)
 
 
-def profile_models(device, results, steps, path='main'):
+def profile_models(device, results, steps, path='main',
+                   baseline_suppress=None):
     """Plain against the path's walk, NMS and the whole step; returns the
-    profiler window of the path's backend steps."""
+    profiler window of the path's backend steps. ``baseline_suppress``
+    (main path): another fixed_point_suppress, whose NMS stage, detect
+    step and profiler window are measured beside this tree's."""
     plain = build_main_path_detector(device, fused=False)
     if path == 'main':
         walk, name = build_main_path_detector(device, fused=True), 'fused'
@@ -223,12 +236,43 @@ def profile_models(device, results, steps, path='main'):
         log(results, 'detect_step_device_ms', step_dev,
             '{} detect step (resize, forward, NMS): {:.3f} ms on the '
             'device'.format(name, step_dev))
+        if baseline_suppress is not None:
+            with _suppression(baseline_suppress):
+                for key, fn in (('nms_device_ms', nms),
+                                ('detect_step_device_ms',
+                                 lambda: walk.detect_batch(u8))):
+                    ms = graph_ms(fn)
+                    log(results, 'baseline_' + key, ms,
+                        'with the baseline kernel 1: {} {:.4f}'.format(
+                            key, ms))
+                profile_trace(backend(walk), images, cameras, results,
+                              name + ' (baseline kernel 1)',
+                              key='profile_baseline')
 
     return profile_trace(backend(walk), images, cameras, results, name)
 
 
-def profile_trace(be, images, cameras, results, label, steps=10, top=12):
-    """torch.profiler over ``steps`` backend steps; returns the profiler."""
+class _suppression:
+    """ops/nms.py's greedy suppression replaced by ``suppress`` for a
+    block."""
+
+    def __init__(self, suppress):
+        self.suppress = suppress
+
+    def __enter__(self):
+        from watsor_tpu_torch.ops import nms
+        self.saved = nms.fixed_point_suppress
+        nms.fixed_point_suppress = self.suppress
+
+    def __exit__(self, *exc):
+        from watsor_tpu_torch.ops import nms
+        nms.fixed_point_suppress = self.saved
+
+
+def profile_trace(be, images, cameras, results, label, steps=10, top=12,
+                  key='profile'):
+    """torch.profiler over ``steps`` backend steps, into results[key];
+    returns the profiler."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         be.detect_batch(images, senders=cameras)
@@ -260,7 +304,7 @@ def profile_trace(be, images, cameras, results, label, steps=10, top=12):
                 'share': t / total_us}
                for name, (n, t) in sorted(per_kernel.items(),
                                           key=lambda kv: -kv[1][1])[:top]]
-    results['profile'] = {'steps': steps, 'wall_ms': wall,
+    results[key] = {'steps': steps, 'wall_ms': wall,
                           'device_busy_ms': busy_us / 1e3,
                           'busy_share': busy_us / 1e3 / wall,
                           'device_events_per_step': len(spans) / steps,
@@ -390,7 +434,6 @@ def profile_blocks(device, results, min_blocks, baseline=None):
 def profile_launch_cost(device, results):
     """Host time of one wrapper launch: the first fused block's shape and
     the suppression at the main path's C = 2."""
-    from watsor_tpu_torch.ops.boxes import iou_matrix
     from watsor_tpu_torch.ops.nms_fixed_point import fixed_point_suppress
     rng = np.random.default_rng(0)
     H, C_in, E, C_out = FUSED_SHAPES[0]
@@ -412,8 +455,7 @@ def profile_launch_cost(device, results):
                          dtype=torch.float32, device=device)
     scores = torch.tensor(rng.uniform(0, 1, (BATCH, 2, 128)),
                           dtype=torch.float32, device=device)
-    iou = iou_matrix(boxes, boxes).contiguous()
-    nms_us = host_us(lambda: fixed_point_suppress(scores, iou, 0.6))
+    nms_us = host_us(lambda: fixed_point_suppress(scores, boxes, 0.6))
     results['launch_host_us'] = {'fused_inverted_residual': block_us,
                                  'fixed_point_suppress': nms_us}
     print('host time a launch: fused_inverted_residual {:.2f} us, '
@@ -645,7 +687,7 @@ def _empty_launch(lib, grid_x, grid_y, threads):
     return run
 
 
-def _suppression_inputs(rng, B, C, M, per_class):
+def _suppression_inputs(rng, B, C, M, per_class, device):
     """chip_smoke.py's suppression inputs: scores on a 1/64 grid (many
     ties), boxes of side 0.02 to 0.4; per class sorted when ``per_class``
     (kernel 3's top-k), else one set of boxes an image (kernel 1's
@@ -657,8 +699,8 @@ def _suppression_inputs(rng, B, C, M, per_class):
     yx = rng.uniform(0, 1, shape + (2,))
     hw = rng.uniform(0.02, 0.4, shape + (2,))
     boxes = np.concatenate([yx, yx + hw], -1)
-    return (torch.tensor(s, dtype=torch.float32, device='cuda'),
-            torch.tensor(boxes, dtype=torch.float32, device='cuda'))
+    return (torch.tensor(s, dtype=torch.float32, device=device),
+            torch.tensor(boxes, dtype=torch.float32, device=device))
 
 
 def _report(results, key, row, text):
@@ -668,74 +710,155 @@ def _report(results, key, row, text):
         '{} {}'.format(k, v) for k, v in row.items()), flush=True)
 
 
-def profile_nms(device, results):
+def _suppression_libraries(name, signatures, tree=None):
+    """(timing build, phase-clock build or None) of csrc/<name>.cu, this
+    tree's or the checkout ``tree``'s; the phase-clock build exists where
+    the source has WT_PHASE_CLOCK."""
+    if tree:
+        source = os.path.join(tree, 'watsor_tpu_torch', 'csrc', name + '.cu')
+        name += '_baseline'
+    else:
+        source = os.path.join(_build.CSRC_DIR, name + '.cu')
+    timing = _build.load(name, signatures, source=source)
+    with open(source) as f:
+        if 'WT_PHASE_CLOCK' not in f.read():
+            return timing, None
+    return timing, _build.load(name + '_phases',
+                               dict(signatures, **_PHASE_SIGNATURES),
+                               source=source, defines=('WT_PHASE_CLOCK',))
+
+
+def fixed_point_v1(tree):
+    """Kernel 1 of another checkout whose csrc/nms_fixed_point.cu has the
+    first version's C entry (an IoU matrix where the second takes the
+    boxes): a function of (scores_cm, boxes, iou_threshold) that builds
+    ``iou_matrix`` and launches it, as the first version's stage did."""
+    from watsor_tpu_torch.ops import nms_fixed_point
+    from watsor_tpu_torch.ops.boxes import iou_matrix
+    lib, _ = _suppression_libraries('nms_fixed_point',
+                                    nms_fixed_point._SIGNATURES, tree)
+
+    def suppress(scores_cm, boxes, iou_threshold=0.6):
+        keep = torch.empty(scores_cm.shape, dtype=torch.bool,
+                           device=scores_cm.device)
+        nms_fixed_point.launch(lib, scores_cm, iou_matrix(boxes, boxes),
+                               keep, iou_threshold)
+        return keep
+    return suppress
+
+
+def _turns(versions):
+    """Device time of each version, in turns A B B A; the mean of each."""
+    times = defaultdict(list)
+    for name in list(versions) + list(versions)[::-1]:
+        times[name].append(graph_ms(versions[name]))
+    return {name + '_device_ms': statistics.mean(t)
+            for name, t in times.items()}
+
+
+def profile_nms(device, results, baseline=None):
     """The two suppression kernels at the paths' shapes (kernel 1 at
-    [8, C, 128], kernel 3 at [8, C, 100]; C = 2 and 90): device time
-    (CUDA-graph replay) and CUDA-event time with host launches, an empty
-    kernel launched with the same grid the same ways, and the phase split
-    of a WT_PHASE_CLOCK build."""
+    [8, C, 128], kernel 3 at [8, C, 100]; C = 2 and 90), each checked
+    against its plain version: device time (CUDA-graph replay) and
+    CUDA-event time with host launches; the ``baseline`` checkout's kernels
+    (the first versions) in turns A B B A, kernel 1 with the
+    ``iou_matrix`` it reads; an empty kernel launched with the second
+    version's grid; and the phase split of each version's WT_PHASE_CLOCK
+    build."""
     from watsor_tpu_torch.ops import nms_fixed_point, nms_suppress
     from watsor_tpu_torch.ops.boxes import iou_matrix
     rng = np.random.default_rng(0)
-    fp = _build.load('nms_fixed_point_phases', dict(
-        nms_fixed_point._SIGNATURES, **_PHASE_SIGNATURES),
-        source=os.path.join(_build.CSRC_DIR, 'nms_fixed_point.cu'),
-        defines=('WT_PHASE_CLOCK',))
-    sup = _build.load('nms_suppress_phases', dict(
-        nms_suppress._SIGNATURES, **_PHASE_SIGNATURES),
-        source=os.path.join(_build.CSRC_DIR, 'nms_suppress.cu'),
-        defines=('WT_PHASE_CLOCK',))
-    for C in (2, 90):
-        scores, boxes = _suppression_inputs(rng, BATCH, C, 128, False)
-        iou = iou_matrix(boxes, boxes).contiguous()
-        keep = torch.empty(scores.shape, dtype=torch.bool, device=device)
-        grid = ((C + 7) // 8, BATCH, 256)
 
-        def dev_run(keep=keep, scores=scores, iou=iou, C=C):
-            _build.check(fp.wt_fixed_point_suppress(
-                scores.data_ptr(), iou.data_ptr(), keep.data_ptr(), BATCH, C,
-                128, 0.6, device.index,
-                torch.cuda.current_stream().cuda_stream), 'phases build')
-        want = nms_fixed_point.fixed_point_suppress_plain(scores, iou, 0.6)
-        dev_run()
-        if not torch.equal(keep, want):
-            raise AssertionError('phase build of kernel 1 differs')
-        row = {'kept': int(want.sum()), 'blocks': grid[0] * grid[1]}
-        kernel = lambda: nms_fixed_point.fixed_point_suppress(  # noqa: E731
-            scores, iou, 0.6)
-        with_iou = lambda: nms_fixed_point.fixed_point_suppress(  # noqa
-            scores, iou_matrix(boxes, boxes), 0.6)
-        empty = _empty_launch(fp, *grid)
-        row.update(device_ms=graph_ms(kernel), events_ms=events_ms(kernel),
-                   with_iou_device_ms=graph_ms(with_iou),
-                   empty_device_ms=graph_ms(empty),
+    fp, fp_phases = _suppression_libraries('nms_fixed_point',
+                                           nms_fixed_point._SIGNATURES)
+    if baseline:
+        fp_old, fp_old_phases = _suppression_libraries(
+            'nms_fixed_point', nms_fixed_point._SIGNATURES, baseline)
+    for C in (2, 90):
+        scores, boxes = _suppression_inputs(rng, BATCH, C, 128, False,
+                                            device)
+        iou = iou_matrix(boxes, boxes)
+        want = nms_fixed_point.fixed_point_suppress_plain(scores, boxes, 0.6)
+        keep = torch.empty_like(want)
+
+        def v2(lib=fp, scores=scores, boxes=boxes, keep=keep):
+            nms_fixed_point.launch(lib, scores, boxes, keep, 0.6)
+        versions = {'v2': v2}
+        v2()
+        checks = {'v2': torch.equal(keep, want)}
+        row = {'kept': int(want.sum()), 'blocks': BATCH * C}
+        if baseline:
+            def v1(lib=fp_old, scores=scores, boxes=boxes, keep=keep):
+                nms_fixed_point.launch(lib, scores, iou_matrix(boxes, boxes),
+                                       keep, 0.6)
+
+            def v1_alone(lib=fp_old, scores=scores, iou=iou, keep=keep):
+                nms_fixed_point.launch(lib, scores, iou, keep, 0.6)
+            versions['v1_with_iou'] = v1
+            v1()
+            checks['v1'] = torch.equal(keep, want)
+            row['v1_alone_device_ms'] = graph_ms(v1_alone)
+        if not all(checks.values()):
+            raise AssertionError('kernel 1 differs from its plain version: '
+                                 '{}'.format(checks))
+        row.update(_turns(versions))
+        for name, run in versions.items():
+            row[name + '_events_ms'] = events_ms(run)
+        empty = _empty_launch(fp_phases, BATCH * C, 1, 512)
+        row.update(empty_device_ms=graph_ms(empty),
                    empty_events_ms=events_ms(empty))
-        row.update(phase_split(fp, dev_run, grid[0] * grid[1],
-                               ('bitmask', 'walk')))
+        for prefix, lib, phases, run in (
+                ('v2_', fp_phases, ('load', 'rank', 'triangle', 'walk',
+                                    'write'), v2),
+                ('v1_', fp_old_phases if baseline else None,
+                 ('bitmask', 'walk'), v1_alone if baseline else None)):
+            if lib is not None:
+                blocks = BATCH * C if prefix == 'v2_' else \
+                    BATCH * ((C + 7) // 8)
+                row.update({prefix + k: v for k, v in phase_split(
+                    lib, lambda lib=lib, run=run: run(lib=lib), blocks,
+                    phases).items()})
         _report(results, 'fixed_point_suppress_C{}'.format(C), row,
                 'fixed_point_suppress B={} C={} M=128'.format(BATCH, C))
-    for C in (2, 90):
-        scores, boxes = _suppression_inputs(rng, BATCH, C, 100, True)
-        out = torch.empty_like(scores)
 
-        def dev_run(out=out, scores=scores, boxes=boxes, C=C):
-            _build.check(sup.wt_nms_suppress(
-                boxes.data_ptr(), scores.data_ptr(), out.data_ptr(),
-                BATCH * C, 100, 0.6, device.index,
-                torch.cuda.current_stream().cuda_stream), 'phases build')
+    sup, sup_phases = _suppression_libraries('nms_suppress',
+                                             nms_suppress._SIGNATURES)
+    if baseline:
+        sup_old, sup_old_phases = _suppression_libraries(
+            'nms_suppress', nms_suppress._SIGNATURES, baseline)
+    for C in (2, 90):
+        scores, boxes = _suppression_inputs(rng, BATCH, C, 100, True,
+                                            device)
         want = nms_suppress.pallas_suppress_plain(boxes, scores, 0.6)
-        dev_run()
-        if not torch.equal(out, want):
-            raise AssertionError('phase build of kernel 3 differs')
+        out = torch.empty_like(want)
+
+        def run(lib, scores=scores, boxes=boxes, out=out):
+            nms_suppress.launch(lib, boxes, scores, out, 0.6)
+        versions = {'v2': lambda run=run: run(sup)}
+        if baseline:
+            versions['v1'] = lambda run=run: run(sup_old)
+        checks = {}
+        for name, version in versions.items():
+            version()
+            checks[name] = torch.equal(out, want)
+        if not all(checks.values()):
+            raise AssertionError('kernel 3 differs from its plain version: '
+                                 '{}'.format(checks))
         row = {'kept': int((want > 0).sum()), 'blocks': BATCH * C}
-        kernel = lambda: nms_suppress.pallas_suppress(  # noqa: E731
-            boxes, scores, 0.6)
-        empty = _empty_launch(sup, BATCH * C, 1, 128)
-        row.update(device_ms=graph_ms(kernel), events_ms=events_ms(kernel),
-                   empty_device_ms=graph_ms(empty),
+        row.update(_turns(versions))
+        for name, version in versions.items():
+            row[name + '_events_ms'] = events_ms(version)
+        empty = _empty_launch(sup_phases, BATCH * C, 1, 512)
+        row.update(empty_device_ms=graph_ms(empty),
                    empty_events_ms=events_ms(empty))
-        row.update(phase_split(sup, dev_run, BATCH * C,
-                               ('stage', 'triangle', 'walk')))
+        for prefix, lib, phases in (
+                ('v2_', sup_phases, ('stage', 'triangle', 'walk', 'write')),
+                ('v1_', sup_old_phases if baseline else None,
+                 ('stage', 'triangle', 'walk'))):
+            if lib is not None:
+                row.update({prefix + k: v for k, v in phase_split(
+                    lib, lambda lib=lib, run=run: run(lib), BATCH * C,
+                    phases).items()})
         _report(results, 'pallas_suppress_C{}'.format(C), row,
                 'pallas_suppress B={} C={} K=100'.format(BATCH, C))
 
@@ -777,10 +900,12 @@ def main(argv=None):
           flush=True)
     results = {'card': card, 'batch': BATCH, 'path': args.path}
     if args.path == 'nms':
-        profile_nms(device, results)
+        profile_nms(device, results, args.baseline)
         print(json.dumps(results), flush=True)
         return
-    prof = profile_models(device, results, args.steps, args.path)
+    prof = profile_models(device, results, args.steps, args.path,
+                          fixed_point_v1(args.baseline)
+                          if args.baseline and args.path == 'main' else None)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     if args.path == 'main':

@@ -139,6 +139,29 @@ def int8_call_work(M, K, N, quantize):
         2 * M * K * N
 
 
+# f32 operations of one IoU and its compare against the threshold: four
+# min/max, two differences and their clamps, the product, the union's add,
+# subtract and clamp, the division and the compare
+IOU_OPS = 14
+
+
+def fixed_point_work(B, C, M):
+    """(bytes, f32 operations) of one fixed_point_suppress call for
+    ``Bound.add``: f32 scores [B, C, M] and boxes [B, M, 4] read once, the
+    keep bytes written once; the overlap relation of each image's union,
+    M(M-1)/2 IoUs, shared by its classes."""
+    return 4 * (B * C * M + 4 * B * M) + B * C * M, \
+        IOU_OPS * B * M * (M - 1) // 2
+
+
+def suppress_work(B, C, K):
+    """(bytes, f32 operations) of one pallas_suppress call for
+    ``Bound.add``: f32 boxes [B, C, K, 4] and scores [B, C, K] read once,
+    the surviving scores written once; K(K-1)/2 IoUs for each class."""
+    return 4 * (B * C * K * 4 + 2 * B * C * K), \
+        IOU_OPS * B * C * K * (K - 1) // 2
+
+
 def int_mm_operand(x, w):
     """w in a layout torch._int_mm takes with x, and its name: as it is,
     else column-major, which cuBLASLt asks for at some shapes. Call it
