@@ -28,7 +28,17 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    cosine against the f32 plain model;
 3. boots TorchApplication on config/config.yaml and waits for detections
    to flow through /metrics, once on the main path and once on the int8
-   path with ``nms: exact``;
+   path with ``nms: exact``, then with ``model: efficientdet_lite0``, the
+   default NMS and 8 synthetic cameras;
+4. builds each other family of the zoo at full width on the card
+   (ssd_mobilenet_v1, ssdlite_mobilenet_v2, ssd_inception_v2,
+   efficientdet_lite0..4; bf16, ``nms: fused_exact``, all 90 classes),
+   runs its detect step on 8 frames of 1920x1080 with one
+   fixed_point_suppress launch a step, holds that launch's keep-mask bit
+   for bit against the plain version on the same inputs and the bf16 raw
+   outputs against the f32 plain model (TF32 off), and times the step
+   from a CUDA-graph replay; then efficientdet_lite0 under ``nms: exact``,
+   holding its pallas_suppress launch the same way;
 
 and last checks that nothing of JAX, and nothing of the JAX package
 ``watsor_tpu``, was imported on the way. The f32 comparisons run with TF32
@@ -487,14 +497,148 @@ def phase_reference(device, detector):
     if max(errs) > MODEL_REL_TOL:
         raise AssertionError('fused bf16 vs f32 plain: relative errors {}'
                              .format(errs))
-    n = detector.config.max_detections
-    if tuple(out.boxes.shape) != (2, n, 4) or \
-            not bool(torch.isfinite(out.boxes).all()) or \
-            not bool(((out.valid >= 0) & (out.valid <= n)).all()):
-        raise AssertionError('malformed detect_batch output')
+    _check_detections(out, 2, detector.config.max_detections)
     log('phase2 reference: fused bf16 vs plain f32 raw outputs, relative '
         'max error boxes {:.3g} logits {:.3g} (bound {})'.format(
             errs[0], errs[1], MODEL_REL_TOL))
+
+
+def _check_detections(out, batch, n):
+    """Detections of the expected shape, finite, scores in [0, 1]."""
+    import torch
+    if tuple(out.boxes.shape) != (batch, n, 4) or \
+            not bool(torch.isfinite(out.boxes).all()) or \
+            not bool(((out.scores >= 0) & (out.scores <= 1)).all()) or \
+            not bool(((out.valid >= 0) & (out.valid <= n)).all()):
+        raise AssertionError('malformed detect_batch output')
+
+
+def _path_step(detector, frames, wrapper):
+    """One detect step with ``wrapper``'s count set to 0 just before and
+    read just after, and ops/nms.py's calls of it recorded (the wrapper
+    still runs); returns (launches, recorded calls)."""
+    import torch
+    from watsor_tpu_torch.profile_step import _suppression
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return wrapper(*args)
+
+    with _suppression(record, wrapper.__name__):
+        wrapper.launches = 0
+        out = detector.detect_batch(frames)
+        torch.cuda.synchronize()
+        launches = wrapper.launches
+    _check_detections(out, frames.shape[0], detector.config.max_detections)
+    return launches, calls
+
+
+def _f32_gap(detector, frames):
+    """The bf16 detector's raw outputs against its f32 plain model on the
+    same resized and normalized batch, TF32 off: relative max errors
+    (boxes, logits)."""
+    import torch
+    from watsor_tpu_torch.models.efficientdet import (EfficientDetConfig,
+                                                      build_effdet)
+    from watsor_tpu_torch.models.ssd import build_detector
+    from watsor_tpu_torch.ops.preprocess import resize_bilinear
+    cfg = detector.config
+    effdet = isinstance(cfg, EfficientDetConfig)
+    build = build_effdet if effdet else build_detector
+    reference = build(cfg._replace(dtype=torch.float32),
+                      variables=detector.variables, anchors=detector.anchors,
+                      device=frames.device)
+    x = resize_bilinear(frames, cfg.input_size, cfg.input_size)
+    x = (x - cfg.mean_rgb) / cfg.stddev_rgb if effdet else \
+        x * (2.0 / 255.0) - 1.0
+    with torch.inference_mode():
+        got = detector.raw_apply(x)
+        with tf32(False):
+            want = reference.raw_apply(x)
+    errs = []
+    for g, w in zip(got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError('non-finite raw outputs')
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+    return errs
+
+
+def phase_families(device):
+    """phase4: each other family at full width, its detect step on the
+    card through kernel 1, held against the plain kernel and the f32
+    model."""
+    import torch
+    from watsor_tpu_torch.ops import nms_fixed_point
+    from watsor_tpu_torch.profile_step import graph_ms
+    from watsor_tpu_torch.workload import (FAMILIES, build_family_detector,
+                                           frames_1080p)
+
+    fp = nms_fixed_point.fixed_point_suppress
+    frames = frames_1080p(device)
+    for name in FAMILIES:
+        start = time.perf_counter()
+        detector = build_family_detector(device, name)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - start
+        launches, calls = _path_step(detector, frames, fp)
+        if launches != 1 or len(calls) != 1:
+            raise AssertionError('{}: {} fixed_point_suppress launches in '
+                                 'one step, 1 expected'.format(name,
+                                                               launches))
+        scores, boxes, thr = calls[0]
+        got = fp(scores, boxes, thr)
+        want = nms_fixed_point.fixed_point_suppress_plain(scores, boxes, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError('{}: fixed_point_suppress {} of {} keep '
+                                 'bits differ from the plain version'.format(
+                                     name, int((got != want).sum()),
+                                     got.numel()))
+        step_ms = graph_ms(lambda: detector.detect_batch(frames))
+        errs = _f32_gap(detector, frames)
+        if max(errs) > MODEL_REL_TOL:
+            raise AssertionError('{}: bf16 vs f32 plain relative errors {}'
+                                 .format(name, errs))
+        log('phase4 families {}: {}x{}, {} anchors, build {:.2f} s, detect '
+            'step {:.4f} ms on the device (CUDA-graph replay, batch {} of '
+            '1920x1080), fixed_point_suppress launches {} a step at {}, '
+            'bit-identical (kept {}), bf16 vs f32 plain raw outputs '
+            'relative max error boxes {:.3g} logits {:.3g} (bar {})'.format(
+                name, detector.config.input_size, detector.config.input_size,
+                len(detector.anchors), build_s, step_ms, BATCH, launches,
+                list(scores.shape), int(got.sum()), errs[0], errs[1],
+                MODEL_REL_TOL))
+        del detector, calls, scores, boxes, got, want
+        torch.cuda.empty_cache()
+
+
+def phase_families_exact(device):
+    """phase4: efficientdet_lite0 under ``nms: exact``, its one
+    pallas_suppress launch a step held against the plain version."""
+    import torch
+    from watsor_tpu_torch.ops import nms_suppress
+    from watsor_tpu_torch.workload import build_family_detector, frames_1080p
+
+    ps = nms_suppress.pallas_suppress
+    frames = frames_1080p(device)
+    detector = build_family_detector(device, 'efficientdet_lite0',
+                                     nms_mode='exact')
+    launches, calls = _path_step(detector, frames, ps)
+    if launches != 1 or len(calls) != 1:
+        raise AssertionError('{} pallas_suppress launches in one step, 1 '
+                             'expected'.format(launches))
+    boxes, scores, thr = calls[0]
+    got = ps(boxes, scores, thr)
+    want = nms_suppress.pallas_suppress_plain(boxes, scores, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError('pallas_suppress: {} of {} scores differ from '
+                             'the plain version'.format(
+                                 int((got != want).sum()), got.numel()))
+    log('phase4 families efficientdet_lite0 nms exact: pallas_suppress '
+        'launches {} a step at {}, bit-identical (kept {})'.format(
+            launches, list(scores.shape), int((got > 0).sum())))
 
 
 def phase_int8_reference(device, detector):
@@ -525,11 +669,7 @@ def phase_int8_reference(device, detector):
         cosines.append(float(g @ w / (g.norm() * w.norm() + 1e-9)))
     if min(cosines) <= INT8_MIN_COSINE:
         raise AssertionError('int8 vs f32 plain: cosines {}'.format(cosines))
-    n = detector.config.max_detections
-    if tuple(out.boxes.shape) != (2, n, 4) or \
-            not bool(torch.isfinite(out.boxes).all()) or \
-            not bool(((out.valid >= 0) & (out.valid <= n)).all()):
-        raise AssertionError('malformed int8 detect_batch output')
+    _check_detections(out, 2, detector.config.max_detections)
     log('int8 reference: int8 walk vs plain f32 raw outputs, cosine boxes '
         '{:.5f} logits {:.5f} (bound {})'.format(cosines[0], cosines[1],
                                                  INT8_MIN_COSINE))
@@ -543,10 +683,27 @@ def _free_port():
     return port
 
 
-def phase_app(label, env, nms=None, deadline_s=600):
+def _synthetic_cameras(text, n):
+    """config/config.yaml's text with its cameras replaced by ``n``
+    synthetic://loop cameras, and without its video encoder."""
+    import yaml
+    config = yaml.safe_load(text)
+    config['ffmpeg'].pop('encoder', None)
+    config['cameras'] = [{'cam{}'.format(i): {
+        'width': 1280, 'height': 720,
+        'input': 'synthetic://loop?seed={}'.format(i),
+        'detect': [{'person': {'area': 1, 'confidence': 10}},
+                   {'car': {'area': 1, 'confidence': 10}}]}}
+        for i in range(n)]
+    return yaml.safe_dump(config)
+
+
+def phase_app(label, env, nms=None, model=None, cameras=None,
+              deadline_s=600):
     """TorchApplication on config/config.yaml, with the environment knobs
-    ``env`` (None removes one) and ``nms`` set in the copied config, until
-    detections flow."""
+    ``env`` (None removes one), ``nms`` set in the copied config, ``model``
+    as ``--model`` and, with ``cameras``, that many synthetic cameras in
+    place of the demo camera, until detections flow."""
     from watsor_tpu_torch.main import (TorchApplication,
                                        _parse_commandline_arguments)
 
@@ -562,10 +719,13 @@ def phase_app(label, env, nms=None, deadline_s=600):
             text = text.replace('# nms: fused_exact', 'nms: ' + nms)
             if 'nms: ' + nms not in text:
                 raise AssertionError('config/config.yaml has no nms line')
+        if cameras:
+            text = _synthetic_cameras(text, cameras)
         with open(path, 'w') as f:
             f.write(text)
+        argv = ['-c', path, '-m', os.path.join(workdir, 'no_weights')]
         args = _parse_commandline_arguments(
-            ['-c', path, '-m', os.path.join(workdir, 'no_weights')])
+            argv + (['--model', model] if model else []))
         for knob, value in env.items():
             if value is None:
                 os.environ.pop(knob, None)
@@ -580,6 +740,8 @@ def phase_app(label, env, nms=None, deadline_s=600):
             deadline = time.time() + deadline_s
             while time.time() < deadline:
                 time.sleep(1.0)
+                if not thread.is_alive():
+                    raise AssertionError('the application stopped')
                 try:
                     with urllib.request.urlopen(url + '/health',
                                                 timeout=2) as r:
@@ -717,7 +879,17 @@ def main():
                            {'WATSOR_FUSED_BLOCKS': None,
                             'WATSOR_QUANTIZE': 'int8_full',
                             'WATSOR_INT8_POINTWISE': 'pallas'},
-                           nms='exact'), None)]
+                           nms='exact'), None),
+        ('phase3 application (efficientdet_lite0)',
+         lambda: phase_app('phase3 application (efficientdet_lite0, 8 '
+                           'synthetic cameras)',
+                           {'WATSOR_QUANTIZE': None,
+                            'WATSOR_INT8_POINTWISE': None},
+                           model='efficientdet_lite0', cameras=BATCH), None),
+        ('phase4 families', lambda: phase_families(device), None),
+        ('phase4 families exact', lambda: phase_families_exact(device),
+         None)]
+    start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:
             failures.append(name)
@@ -729,6 +901,7 @@ def main():
             traceback.print_exc()
             failures.append(name)
             log('{} FAILED'.format(name))
+    log('phases: {:.1f} s'.format(time.perf_counter() - start))
     jax_modules = _jax_modules()
     if jax_modules:
         failures.append('no-jax check')

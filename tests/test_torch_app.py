@@ -14,6 +14,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -48,18 +49,18 @@ def _free_port():
     return port
 
 
-def _args(tmp_path, extra=''):
+def _args(tmp_path, extra='', model='ssd_mobilenet_v2_shapes'):
     port = _free_port()
     config_file = tmp_path / 'config.yaml'
     config_file.write_text(CONFIG.format(port=port, extra=extra))
     return port, _parse_commandline_arguments([
-        '-c', str(config_file), '--model', 'ssd_mobilenet_v2_shapes',
+        '-c', str(config_file), '--model', model,
         '-m', str(tmp_path / 'no_weights')])
 
 
-def _serve(tmp_path, extra=''):
+def _serve(tmp_path, extra='', model='ssd_mobilenet_v2_shapes'):
     """Run TorchApplication until detections flow; returns (app, metrics)."""
-    port, args = _args(tmp_path, extra)
+    port, args = _args(tmp_path, extra, model)
     app = TorchApplication(args)
     thread = threading.Thread(target=app.run, daemon=True)
     thread.start()
@@ -98,7 +99,7 @@ def _serve(tmp_path, extra=''):
 
 _KNOBS = ('WATSOR_QUANTIZE', 'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS',
           'TRT_FLOAT_PRECISION', 'WATSOR_DEVICE_RENDER', 'WATSOR_CALIB_FILE',
-          'WATSOR_INT8_POINTWISE')
+          'WATSOR_INT8_POINTWISE', 'WATSOR_FUSED_HEADS')
 
 
 def _clear_knobs(monkeypatch):
@@ -148,6 +149,95 @@ def test_int8_weights_refuse_fused_blocks(tmp_path, monkeypatch):
     app = TorchApplication(args)
     with pytest.raises(SystemExit, match='WATSOR_FUSED_BLOCKS'):
         app._setup(app._read_config())
+
+
+def test_torch_app_serves_efficientdet(tmp_path, monkeypatch):
+    """efficientdet_lite0 at full size on the CPU, the default NMS: the
+    detect plane takes the model's 320x320 input."""
+    _clear_knobs(monkeypatch)
+    app, _ = _serve(tmp_path, model='efficientdet_lite0')
+    assert app.DETECT_SIZE == 320
+    detector = app._detectors[0]._backend._detector
+    assert detector.config.input_size == 320 and detector.anchors.shape == \
+        (19206, 4)
+
+
+def _factory(tmp_path, monkeypatch, model, **knobs):
+    """The application's detector factory for ``model`` under ``knobs``."""
+    _clear_knobs(monkeypatch)
+    for knob, value in knobs.items():
+        monkeypatch.setenv(knob, value)
+    _, args = _args(tmp_path, model=model)
+    app = TorchApplication(args)
+    return app, app._detector_factory(app._read_config())
+
+
+@pytest.mark.parametrize('model,size', [('ssd_mobilenet_v1', 300),
+                                        ('ssd_inception_v2', 300),
+                                        ('efficientdet_lite2', 448),
+                                        ('efficientdet_lite4', 640)])
+def test_detect_size_follows_the_model(tmp_path, monkeypatch, model, size):
+    app, _ = _factory(tmp_path, monkeypatch, model)
+    assert app.DETECT_SIZE == size
+
+
+@pytest.mark.parametrize('model', ['ssd_inception_v2', 'ssdlite_mobilenet_v2',
+                                   'ssd_mobilenet_v1', 'efficientdet_lite0'])
+def test_fused_blocks_refuse_other_families(tmp_path, monkeypatch, model):
+    """WATSOR_FUSED_BLOCKS=1 covers the plain ssd_mobilenet_v2 only, as in
+    the JAX package (watsor_tpu/main.py:519-528)."""
+    with pytest.raises(SystemExit, match='plain ssd_mobilenet_v2'):
+        _factory(tmp_path, monkeypatch, model, WATSOR_FUSED_BLOCKS='1')
+
+
+@pytest.mark.parametrize('model', ['efficientdet_lite0', 'ssd_mobilenet_v1'])
+def test_int8_full_refuses_other_families(tmp_path, monkeypatch, model):
+    with pytest.raises(SystemExit, match='plain ssd_mobilenet_v2'):
+        _factory(tmp_path, monkeypatch, model, WATSOR_QUANTIZE='int8_full')
+
+
+def test_int8_weights_cover_the_ssd_families(tmp_path, monkeypatch):
+    """WATSOR_QUANTIZE=int8 applies to every ssd_ model
+    (watsor_tpu/main.py:469): ssd_mobilenet_v1 builds the quantized
+    detector, every conv kernel an int8 leaf."""
+    from watsor_tpu_torch.models.quantize import QuantizedLeaf
+    _, make = _factory(tmp_path, monkeypatch, 'ssd_mobilenet_v1',
+                       WATSOR_QUANTIZE='int8')
+    detector = make(torch.device('cpu'))
+    params = detector.variables['params']
+    assert isinstance(params['backbone']['unit1_depthwise']['Conv_0'][
+        'kernel'], QuantizedLeaf)
+    assert isinstance(params['cls_head0']['kernel'], QuantizedLeaf)
+    assert detector.model.backbone.stem.conv.weight.device.type == 'meta'
+
+
+def test_int8_weights_leave_efficientdet_float(tmp_path, monkeypatch):
+    """...and to no EfficientDet, which stays float, as in the JAX
+    package."""
+    _, make = _factory(tmp_path, monkeypatch, 'efficientdet_lite0',
+                       WATSOR_QUANTIZE='int8')
+    detector = make(torch.device('cpu'))
+    kernel = detector.variables['params']['cls_head']['predict']['pw'][
+        'kernel']
+    assert isinstance(kernel, np.ndarray) and kernel.dtype == np.float32
+
+
+@pytest.mark.parametrize('model', ['efficientdet_lite9', 'efficientdet_d0',
+                                   'ssd_resnet50'])
+def test_unknown_models_exit(tmp_path, monkeypatch, model):
+    """A name outside the zoo exits, an unknown EfficientDet-Lite variant
+    naming the supported ones (watsor_tpu/main.py:145-152)."""
+    with pytest.raises(SystemExit, match='lite0'
+                       if model.startswith('efficientdet_') else 'available'):
+        _factory(tmp_path, monkeypatch, model)
+
+
+def test_fused_heads_knob_reaches_efficientdet(tmp_path, monkeypatch):
+    _, make = _factory(tmp_path, monkeypatch, 'efficientdet_lite0',
+                       WATSOR_FUSED_HEADS='1')
+    detector = make(torch.device('cpu'))
+    assert detector.config.fused_heads
+    assert 'dual_head' in detector.variables['params']
 
 
 _BOOT = r"""

@@ -194,8 +194,10 @@ def test_zoo_loads_npz_weights(pair, tmp_path):
 
 
 def test_zoo_refuses_unported_models():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_from_zoo('efficientdet_lite0', device='cpu')
+    """An unknown EfficientDet-Lite variant raises ValueError, as the JAX
+    package's lite_config does (watsor_tpu/models/efficientdet.py:60-66)."""
+    with pytest.raises(ValueError, match='unknown EfficientDet-Lite variant'):
+        build_from_zoo('efficientdet_lite9', device='cpu')
 
 
 @pytest.mark.parametrize('builder', ['build_from_zoo', 'build_detector',

@@ -9,11 +9,14 @@ its JAX branches replaced by the PyTorch detection path: the detector
 build, the device pool, the profiler route (501) and ``run`` without the
 platform pin and discovery probe. The host graph is the port's own copy of
 the JAX package's (decoders, balanced queue, sieve, effects, snapshot,
-MQTT, HTTP). Knobs honoured as in the JAX package:
-``TRT_FLOAT_PRECISION=32|16``, ``WATSOR_FUSED_BLOCKS=1``,
-``WATSOR_QUANTIZE=int8|int8_full`` (with ``WATSOR_CALIB_FILE`` and
-``WATSOR_INT8_POINTWISE=conv|dot|pallas``), ``WATSOR_DEVICE_FILTERS=0``,
-``WATSOR_DEVICE_POOL``. Knobs whose paths are not ported yet raise.
+MQTT, HTTP). Every model of the JAX package's zoo is served (``model:``
+in the config or ``--model``). Knobs honoured as in the JAX package:
+``TRT_FLOAT_PRECISION=32|16``, ``WATSOR_FUSED_BLOCKS=1`` (plain
+ssd_mobilenet_v2 only), ``WATSOR_QUANTIZE=int8`` (the ``ssd_`` models) or
+``int8_full`` (plain ssd_mobilenet_v2 only; with ``WATSOR_CALIB_FILE`` and
+``WATSOR_INT8_POINTWISE=conv|dot|pallas``), ``WATSOR_FUSED_HEADS=1``
+(EfficientDet), ``WATSOR_DEVICE_FILTERS=0``, ``WATSOR_DEVICE_POOL``. Knobs
+whose paths are not ported yet raise.
 """
 
 import argparse
@@ -72,13 +75,16 @@ def _parse_commandline_arguments(argv=None):
 
 
 def detector_spec_from_config(config, args):
-    """(model_name, watched labels or None, nms mode) for this config."""
-    from watsor_tpu_torch.models.zoo import DEFAULT_MODEL, MODEL_REGISTRY
+    """(model_name, watched labels or None, nms mode) for this config. A
+    name outside the zoo exits: the registry's names, and
+    ``efficientdet_<variant>`` for a published Lite variant."""
+    from watsor_tpu_torch.models.zoo import DEFAULT_MODEL, model_config
     model_name = getattr(args, 'model', None) or config.get('model') \
         or DEFAULT_MODEL
-    if model_name not in MODEL_REGISTRY:
-        raise SystemExit("model '{}' {}; available: {}".format(
-            model_name, _NOT_PORTED, ', '.join(sorted(MODEL_REGISTRY))))
+    try:
+        model_config(model_name)
+    except ValueError as exc:
+        raise SystemExit(str(exc))
     watched = set()
     for camera in config['cameras']:
         camera_config = camera[next(iter(camera))]
@@ -87,6 +93,13 @@ def detector_spec_from_config(config, args):
             if label:
                 watched.add(label)
     return model_name, watched or None, config.get('nms')
+
+
+def _plain_v2(config):
+    """The plain (non-Lite) SSD on MobileNetV2: the one family the fused
+    blocks and the int8 walk cover, as in the JAX package."""
+    return getattr(config, 'backbone', None) == 'mobilenet_v2' and \
+        not config.lite
 
 
 def use_full_f32():
@@ -364,7 +377,7 @@ class TorchApplication:
 
     def _detector_factory(self, config):
         """device -> Detector, for the configured model and knobs."""
-        from watsor_tpu_torch.models.zoo import MODEL_REGISTRY
+        from watsor_tpu_torch.models.zoo import model_config
         if os.environ.get('WATSOR_FLEET') not in (None, '', '0'):
             raise SystemExit('WATSOR_FLEET={} {}'.format(
                 os.environ['WATSOR_FLEET'], _NOT_PORTED))
@@ -383,18 +396,33 @@ class TorchApplication:
         if quantize_mode not in (None, '0', 'int8', 'int8_full'):
             raise SystemExit('WATSOR_QUANTIZE must be int8 or int8_full, got '
                              '{!r}'.format(quantize_mode))
+        model_cfg = model_config(model_name)
+        # int8 weights apply to the ssd_ models, as in the JAX package
+        # (watsor_tpu/main.py:469): an EfficientDet or SSDLite stays float
+        if quantize_mode == 'int8' and not model_name.startswith('ssd_'):
+            _LOGGER.warning('WATSOR_QUANTIZE=int8 applies to the ssd_ models '
+                            'only; %s keeps float weights', model_name)
+            quantize_mode = None
         # the int8 walk runs its own convolutions (WATSOR_FUSED_BLOCKS is
         # ignored under int8_full, as in the JAX package)
         fused = os.environ.get('WATSOR_FUSED_BLOCKS') == '1' and \
             quantize_mode != 'int8_full'
+        if fused and not _plain_v2(model_cfg):
+            raise SystemExit('WATSOR_FUSED_BLOCKS=1 supports the plain '
+                             'ssd_mobilenet_v2 model only (got {})'.format(
+                                 model_name))
         if fused and quantize_mode == 'int8':
             raise SystemExit('WATSOR_QUANTIZE=int8 with WATSOR_FUSED_BLOCKS=1 '
                              'is not supported: the fused pack folds float '
                              'kernels, not int8 ones')
         calib = None
         if quantize_mode == 'int8_full':
-            calib = self._calibration_images(model_name)
-        self.DETECT_SIZE = MODEL_REGISTRY[model_name].input_size
+            if not _plain_v2(model_cfg):
+                raise SystemExit(
+                    'WATSOR_QUANTIZE=int8_full supports the plain '
+                    'ssd_mobilenet_v2 model only (got {})'.format(model_name))
+            calib = self._calibration_images(model_cfg.input_size)
+        self.DETECT_SIZE = model_cfg.input_size
         _LOGGER.info('Detection model: %s (input %dx%d, %s classes%s)',
                      model_name, self.DETECT_SIZE, self.DETECT_SIZE,
                      len(watched) if watched else 'all',
@@ -427,15 +455,11 @@ class TorchApplication:
 
         return make_detector
 
-    def _calibration_images(self, model_name):
+    def _calibration_images(self, size):
         """The int8_full calibration frames: WATSOR_CALIB_FILE (an npz with
-        'images' [N, H, W, 3] uint8), else seeded noise with a warning."""
+        'images' [N, H, W, 3] uint8), else seeded noise of ``size`` with a
+        warning."""
         import numpy as np
-        from watsor_tpu_torch.models.zoo import MODEL_REGISTRY
-        if not model_name.startswith('ssd_mobilenet_v2'):
-            raise SystemExit(
-                'WATSOR_QUANTIZE=int8_full supports the plain '
-                'ssd_mobilenet_v2 model only (got {})'.format(model_name))
         calib_file = os.environ.get('WATSOR_CALIB_FILE')
         if calib_file:
             if not os.path.exists(calib_file):
@@ -449,7 +473,6 @@ class TorchApplication:
             'set (WATSOR_CALIB_FILE): calibrating activation '
             'scales on random noise — provide real frames for '
             'production accuracy')
-        size = MODEL_REGISTRY[model_name].input_size
         return np.random.RandomState(0).randint(0, 255, (8, size, size, 3),
                                                 np.uint8)
 

@@ -7,7 +7,8 @@ is asymmetric at stride 2 (300 -> 150 pads (0, 1), 75 -> 38 pads (1, 1)),
 so the padding is computed for each layer from its input size. BatchNorm
 uses eps 1e-3 and runs in f32 on whatever dtype the convolutions produce.
 Module names follow the flax parameter tree so the weight bridge
-(models/weights.py) maps one onto the other by path.
+(models/weights.py) maps one onto the other by path; a module whose
+children carry other names in flax says so in ``FLAX_NAMES``.
 """
 
 import torch
@@ -31,13 +32,26 @@ MOBILENET_V2_BLOCKS = (
 TAP_BLOCK = 13
 
 
-# copied from watsor_tpu/models/ssd_int8.py:42-51 (that module imports jax);
-# at width 1.0 every feature count is already a multiple of 8
-def block_plan():
+# copied from watsor_tpu/models/mobilenet_v2.py:21-27 (that module imports
+# flax)
+def make_divisible(v, divisor=8, min_value=None):
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:  # never round down by more than 10%
+        new_v += divisor
+    return new_v
+
+
+# copied from watsor_tpu/models/ssd_int8.py:42-51 (that module imports jax),
+# with the width multiplier of watsor_tpu/models/mobilenet_v2.py:93-96; at
+# width 1.0 every feature count is already a multiple of 8
+def block_plan(width_multiplier=1.0):
     """(index, expand_ratio, features, strides) for blocks 0..16."""
     plan = []
     index = 0
     for expand, features, repeats, first_stride in MOBILENET_V2_BLOCKS:
+        features = make_divisible(features * width_multiplier)
         for i in range(repeats):
             plan.append((index, expand, features,
                          first_stride if i == 0 else 1))
@@ -64,13 +78,36 @@ def conv_same(x, weight, bias=None, stride=1, groups=1):
     return F.conv2d(x, weight, bias, stride=stride, groups=groups)
 
 
+def max_pool_same(x, stride=2, kernel=3):
+    """flax ``max_pool(padding='SAME')``: the TF 'SAME' padding, which is
+    asymmetric at stride 2 on some sizes, filled with -inf."""
+    top, bottom = same_padding(x.shape[2], kernel, stride)
+    left, right = same_padding(x.shape[3], kernel, stride)
+    x = F.pad(x, (left, right, top, bottom), value=float('-inf'))
+    return F.max_pool2d(x, kernel, stride)
+
+
 def relu6(x):
     return x.clamp(0.0, 6.0)
+
+
+def batch_norm(x, bn):
+    """Inference BatchNorm with ``bn``'s f32 statistics and parameters."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
+def make_bn(channels):
+    """BatchNorm as flax's: eps 1e-3 (flax momentum 0.997 is torch's
+    0.003; only training reads it)."""
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.003)
 
 
 class ConvBNReLU6(nn.Module):
     """Conv (no bias) -> BatchNorm -> optional relu6: flax ``ConvBNRelu6``,
     whose ``Conv_0`` and ``BatchNorm_0`` are ``conv`` and ``bn`` here."""
+
+    FLAX_NAMES = {'conv': 'Conv_0', 'bn': 'BatchNorm_0'}
 
     def __init__(self, in_ch, out_ch, kernel=3, stride=1, groups=1,
                  use_relu=True):
@@ -80,24 +117,25 @@ class ConvBNReLU6(nn.Module):
         self.use_relu = use_relu
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.003)
+        self.bn = make_bn(out_ch)
 
     def forward(self, x):
         x = conv_same(x, self.conv.weight, None, self.stride, self.groups)
-        bn = self.bn
-        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                         bn.bias, False, 0.0, bn.eps)
+        x = batch_norm(x, self.bn)
         return relu6(x) if self.use_relu else x
 
 
 class InvertedResidual(nn.Module):
-    def __init__(self, in_ch, out_ch, stride, expand_ratio):
+    """The MobileNetV2 block, and EfficientNet-Lite's MBConv (no
+    squeeze-excite) with its 3x3 or 5x5 depthwise ``kernel``."""
+
+    def __init__(self, in_ch, out_ch, stride, expand_ratio, kernel=3):
         super().__init__()
         hidden = in_ch * expand_ratio
         self.residual = stride == 1 and in_ch == out_ch
         if expand_ratio != 1:
             self.expand = ConvBNReLU6(in_ch, hidden, 1)
-        self.depthwise = ConvBNReLU6(hidden, hidden, 3, stride=stride,
+        self.depthwise = ConvBNReLU6(hidden, hidden, kernel, stride=stride,
                                      groups=hidden)
         self.project = ConvBNReLU6(hidden, out_ch, 1, use_relu=False)
 
@@ -108,14 +146,15 @@ class InvertedResidual(nn.Module):
 
 
 class MobileNetV2Backbone(nn.Module):
-    """Width 1.0. Returns the two SSD feature taps: block 13's expansion
-    (stride 16, 576 channels) and the final 1280-channel stride-32 map."""
+    """Returns the two SSD feature taps: block 13's expansion (stride 16,
+    576 channels at width 1.0) and the final stride-32 map (1280)."""
 
-    def __init__(self):
+    def __init__(self, width_multiplier=1.0):
         super().__init__()
-        x_ch = 32
+        x_ch = make_divisible(32 * width_multiplier)
         self.stem = ConvBNReLU6(3, x_ch, 3, stride=2)
-        for index, expand, features, strides in block_plan():
+        self.plan = block_plan(width_multiplier)
+        for index, expand, features, strides in self.plan:
             if index == TAP_BLOCK:
                 hidden = x_ch * expand
                 setattr(self, 'block13_expand',
@@ -129,8 +168,10 @@ class MobileNetV2Backbone(nn.Module):
                 setattr(self, 'block{}'.format(index),
                         InvertedResidual(x_ch, features, strides, expand))
             x_ch = features
-        self.plan = block_plan()
-        self.head = ConvBNReLU6(x_ch, 1280, 1)
+        self.head = ConvBNReLU6(
+            x_ch, make_divisible(1280 * max(width_multiplier, 1.0)), 1)
+        self.out_channels = (self.block13_expand.conv.out_channels,
+                             self.head.conv.out_channels)
 
     def forward(self, x):
         x = self.stem(x)

@@ -93,17 +93,17 @@ def quantization_error(params):
 
 def build_quantized_detector(config=None, variables=None, seed=0,
                              anchors=None, device=None):
-    """SSD detector whose conv kernels sit on ``device`` (None: the current
+    """SSD detector of any family (``quantize_params`` walks any tree, as
+    the JAX package's does) whose conv kernels sit on ``device`` (None: the current
     CUDA device; pass 'cpu' for the CPU) as int8 values and scales (OIHW,
     scales along O); each step dequantizes them in the activation dtype,
     as the JAX step does inside its jit, and runs the float model on them.
     Detector.variables is the quantized tree."""
     from torch.func import functional_call
 
-    from watsor_tpu_torch.models.mobilenet_v2 import ConvBNReLU6
     from watsor_tpu_torch.models.ssd import (SSDConfig, build_detector,
                                              make_detect_batch)
-    from watsor_tpu_torch.models.weights import _units
+    from watsor_tpu_torch.models.weights import leaves
     from watsor_tpu_torch.ops.preprocess import normalize_images
 
     base = build_detector(config or SSDConfig(), variables=variables,
@@ -113,20 +113,18 @@ def build_quantized_detector(config=None, variables=None, seed=0,
     device = base.device
     q_variables = quantize_params(base.variables)
     q_weights = {}                    # parameter name -> QuantizedLeaf
-    for path, module in _units(model):
-        conv = module.conv if isinstance(module, ConvBNReLU6) else module
-        name = '.'.join(path) + ('.conv.weight' if conv is not module
-                                 else '.weight')
+    for path, name, conv in leaves(model):
+        if not isinstance(conv, torch.nn.Conv2d):
+            continue
         node = q_variables['params']
         for key in path:
             node = node[key]
-        leaf = node['Conv_0']['kernel'] if conv is not module \
-            else node['kernel']
+        leaf = node['kernel']
         values = torch.from_numpy(np.ascontiguousarray(
             hwio_to_oihw(leaf.values))).to(device).contiguous(
                 memory_format=torch.channels_last)
         # scales along O of the OIHW values
-        q_weights[name] = QuantizedLeaf(
+        q_weights[name + '.weight'] = QuantizedLeaf(
             values, torch.from_numpy(leaf.scales).to(device).view(-1, 1, 1,
                                                                   1))
         # the float kernel leaves the device: the int8 values replace it

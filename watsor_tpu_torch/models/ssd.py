@@ -4,7 +4,9 @@
 ``SSD.forward`` takes NHWC images and returns the raw head outputs
 ``box_enc [B, A, 4]`` and ``logits [B, A, num_classes + 1]`` (column 0 =
 background), both f32. The heads' NCHW outputs are permuted to NHWC before
-the reshape, so anchors line up as in the flax model.
+the reshape, so anchors line up as in the flax model. The three SSD
+families of the JAX package: MobileNetV2 (at any width), MobileNetV1 and
+InceptionV2 backbones, each plain or SSDLite (separable extras and heads).
 """
 
 import functools
@@ -17,6 +19,8 @@ import torch.nn as nn
 from watsor_tpu_torch.models.mobilenet_v2 import (ConvBNReLU6,
                                                   MobileNetV2Backbone,
                                                   cast_convs, conv_same)
+from watsor_tpu_torch.models.weights import (export_variables, init_weights,
+                                             load_variables)
 from watsor_tpu_torch.ops.anchors import (AnchorSpec, anchors_per_location,
                                           ssd300_feature_shapes, ssd_anchors)
 from watsor_tpu_torch.ops.boxes import decode_boxes
@@ -26,13 +30,21 @@ from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION, PER_CLASS_MODES,
 from watsor_tpu_torch.ops.preprocess import normalize_images, resize_bilinear
 
 
+BACKBONES = ('mobilenet_v2', 'mobilenet_v1', 'inception_v2')
+
+
 class SSDConfig(NamedTuple):
-    """The JAX package's SSDConfig for its one ported family: the plain
-    (non-Lite) SSD on a width-1.0 MobileNetV2."""
+    """The JAX package's SSDConfig (watsor_tpu/models/ssd.py:30-61)."""
 
     num_classes: int = 90          # foreground classes (COCO)
     input_size: int = 300
+    backbone: str = 'mobilenet_v2'  # one of BACKBONES
+    # box/class predictor conv size (public v2 checkpoints 3x3, v1 1x1)
     head_kernel: int = 3
+    # SSDLite: separable 3x3 convs in the extras' second stage and in the
+    # predictors
+    lite: bool = False
+    width_multiplier: float = 1.0  # MobileNet backbones only
     extra_features: Tuple[int, ...] = (512, 256, 256, 128)
     anchor_spec: AnchorSpec = AnchorSpec()
     box_coder_scales: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
@@ -45,30 +57,51 @@ class SSDConfig(NamedTuple):
     dtype: Any = torch.bfloat16
 
 
-def check_supported(cfg: SSDConfig):
-    """Raise for an unknown NMS mode."""
+def check_supported(cfg):
+    """Raise for an unknown NMS mode (or, for an SSD, backbone)."""
+    if getattr(cfg, 'backbone', BACKBONES[0]) not in BACKBONES:
+        raise ValueError('unknown backbone {!r}; one of {}'.format(
+            cfg.backbone, list(BACKBONES)))
     if cfg.nms_mode not in FUSED_SUPPRESSION and \
             cfg.nms_mode not in PER_CLASS_MODES:
         raise ValueError('unknown nms mode {!r}; one of {}'.format(
             cfg.nms_mode, sorted(FUSED_SUPPRESSION) + list(PER_CLASS_MODES)))
 
 
+def make_backbone(cfg: SSDConfig):
+    """The configured feature extractor (watsor_tpu/models/ssd.py:77-87)."""
+    if cfg.backbone == 'mobilenet_v1':
+        from watsor_tpu_torch.models.mobilenet_v1 import MobileNetV1Backbone
+        return MobileNetV1Backbone(cfg.width_multiplier)
+    if cfg.backbone == 'inception_v2':
+        from watsor_tpu_torch.models.inception_v2 import InceptionV2Backbone
+        return InceptionV2Backbone()
+    return MobileNetV2Backbone(cfg.width_multiplier)
+
+
 class SSD(nn.Module):
-    """MobileNetV2 feature extractor + extras + box/class conv heads."""
+    """Feature extractor + extras + box/class conv heads."""
 
     def __init__(self, config: SSDConfig = SSDConfig()):
         super().__init__()
         check_supported(config)
         cfg = self.config = config
-        self.backbone = MobileNetV2Backbone()
-        channels = [self.backbone.block13_expand.conv.out_channels,
-                    self.backbone.head.conv.out_channels]
+        self.backbone = make_backbone(cfg)
+        channels = list(self.backbone.out_channels)
         x_ch = channels[-1]
         for i, ch in enumerate(cfg.extra_features):
             setattr(self, 'extra{}_pw'.format(i),
                     ConvBNReLU6(x_ch, ch // 2, 1))
-            setattr(self, 'extra{}'.format(i),
-                    ConvBNReLU6(ch // 2, ch, 3, stride=2))
+            if cfg.lite:
+                # separable 3x3 s2: depthwise + pointwise (SSDLite extras)
+                setattr(self, 'extra{}_dw'.format(i),
+                        ConvBNReLU6(ch // 2, ch // 2, 3, stride=2,
+                                    groups=ch // 2))
+                setattr(self, 'extra{}'.format(i),
+                        ConvBNReLU6(ch // 2, ch, 1))
+            else:
+                setattr(self, 'extra{}'.format(i),
+                        ConvBNReLU6(ch // 2, ch, 3, stride=2))
             x_ch = ch
             channels.append(ch)
         npl = anchors_per_location(cfg.anchor_spec)
@@ -77,40 +110,55 @@ class SSD(nn.Module):
                 len(channels), len(npl)))
         k = cfg.head_kernel
         for i, (ch, n) in enumerate(zip(channels, npl)):
-            setattr(self, 'box_head{}'.format(i), nn.Conv2d(ch, n * 4, k))
+            if cfg.lite:
+                # SSDLite predictors: a depthwise k x k (BN, relu6) feeding
+                # a 1x1 linear conv with bias
+                for head in ('box', 'cls'):
+                    setattr(self, '{}_head{}_dw'.format(head, i),
+                            ConvBNReLU6(ch, ch, k, groups=ch))
+            k_out = 1 if cfg.lite else k
+            setattr(self, 'box_head{}'.format(i), nn.Conv2d(ch, n * 4, k_out))
             setattr(self, 'cls_head{}'.format(i),
-                    nn.Conv2d(ch, n * (cfg.num_classes + 1), k))
+                    nn.Conv2d(ch, n * (cfg.num_classes + 1), k_out))
         self.num_features = len(channels)
 
     def features(self, x):
         c4, c5 = self.backbone(x)
         feats = [c4, c5]
         for i in range(len(self.config.extra_features)):
-            x = getattr(self, 'extra{}'.format(i))(
-                getattr(self, 'extra{}_pw'.format(i))(feats[-1]))
-            feats.append(x)
+            x = getattr(self, 'extra{}_pw'.format(i))(feats[-1])
+            if self.config.lite:
+                x = getattr(self, 'extra{}_dw'.format(i))(x)
+            feats.append(getattr(self, 'extra{}'.format(i))(x))
         return feats
 
     def forward(self, images):
         """images [B, S, S, 3] NHWC float -> (box_enc, logits), f32."""
         x = images.permute(0, 3, 1, 2)       # NCHW view of NHWC storage
-        heads = []
-        for i in range(self.num_features):
+        feats = self.features(x)
+        heads, inputs = [], []
+        for i, feat in enumerate(feats):
             box = getattr(self, 'box_head{}'.format(i))
             cls = getattr(self, 'cls_head{}'.format(i))
             heads.append(((box.weight, box.bias), (cls.weight, cls.bias)))
-        return apply_heads(self.features(x), heads,
-                           self.config.num_classes + 1)
+            if self.config.lite:
+                feat = (getattr(self, 'box_head{}_dw'.format(i))(feat),
+                        getattr(self, 'cls_head{}_dw'.format(i))(feat))
+            inputs.append(feat)
+        return apply_heads(inputs, heads, self.config.num_classes + 1)
 
 
 def apply_heads(features, heads, num_cls):
     """Run the ((box weight, bias), (cls weight, bias)) conv heads over
-    NCHW features and concatenate the anchors in the flax (NHWC) order."""
+    NCHW features (or (box input, cls input) pairs, as SSDLite's separate
+    depthwise stages give them) and concatenate the anchors in the flax
+    (NHWC) order."""
     box_out, cls_out = [], []
     for feat, (box_head, cls_head) in zip(features, heads):
-        B = feat.shape[0]
-        b = conv_same(feat, *box_head)
-        c = conv_same(feat, *cls_head)
+        box_in, cls_in = feat if isinstance(feat, tuple) else (feat, feat)
+        B = box_in.shape[0]
+        b = conv_same(box_in, *box_head)
+        c = conv_same(cls_in, *cls_head)
         box_out.append(b.permute(0, 2, 3, 1).reshape(B, -1, 4))
         cls_out.append(c.permute(0, 2, 3, 1).reshape(B, -1, num_cls))
     return (torch.cat(box_out, dim=1).float(),
@@ -205,6 +253,33 @@ def resolve_device(device=None):
     return torch.device('cuda', torch.cuda.current_device())
 
 
+def place_model(model, variables, seed, device, dtype):
+    """``model`` with ``variables`` (or, without them, weights initialized
+    from ``seed``), in eval mode on ``device``, convolutions in ``dtype``,
+    channels last. Returns (model, its variables tree)."""
+    if variables is None:
+        init_weights(model, torch.Generator().manual_seed(seed))
+        variables = export_variables(model)
+    else:
+        load_variables(model, variables)
+    model = cast_convs(model.eval().to(device), dtype)
+    return model.to(memory_format=torch.channels_last), variables
+
+
+def check_anchors(anchors, expected):
+    """The anchor override as f32, or ``expected`` without one; an
+    override of another shape than the head geometry's raises."""
+    if anchors is None:
+        return expected
+    anchors = np.asarray(anchors, np.float32)
+    if anchors.shape != expected.shape:
+        raise ValueError(
+            'anchor override shape {} does not match the head geometry {}: '
+            'the postprocess sidecar is stale or belongs to another model'
+            .format(anchors.shape, expected.shape))
+    return anchors
+
+
 def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
                    anchors=None, device=None) -> Detector:
     """Build the model on ``device`` (None: the current CUDA device; pass
@@ -213,29 +288,11 @@ def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
 
     ``anchors``: optional [A, 4] override (TFLite conversions carry the
     exact grid of the source graph)."""
-    from watsor_tpu_torch.models.weights import (export_variables,
-                                                 init_weights,
-                                                 load_variables)
-
     cfg = config
     device = resolve_device(device)
-    model = SSD(cfg)
-    if variables is None:
-        init_weights(model, torch.Generator().manual_seed(seed))
-        variables = export_variables(model)
-    else:
-        load_variables(model, variables)
-    expected = anchors_for(cfg)
-    if anchors is None:
-        anchors = expected
-    else:
-        anchors = np.asarray(anchors, np.float32)
-        if anchors.shape != expected.shape:
-            raise ValueError(
-                'anchor override shape {} does not match the head geometry '
-                '{}'.format(anchors.shape, expected.shape))
-    model = cast_convs(model.eval().to(device), cfg.dtype)
-    model = model.to(memory_format=torch.channels_last)
+    model, variables = place_model(SSD(cfg), variables, seed, device,
+                                   cfg.dtype)
+    anchors = check_anchors(anchors, anchors_for(cfg))
     anchors_dev = torch.from_numpy(anchors).to(device)
 
     def raw_apply(images_f):

@@ -148,6 +148,12 @@ def fused_features(pack, x, cfg: SSDConfig):
 def build_fused_detector(detector):
     """The same Detector contract with the fused walk as its forward."""
     cfg = detector.config
+    # watsor_tpu/models/ssd_fused.py:117-121
+    if getattr(cfg, 'backbone', None) != 'mobilenet_v2' or cfg.lite:
+        raise ValueError('fused walk covers the plain MobileNetV2 SSD only')
+    if cfg.width_multiplier != 1.0:
+        raise ValueError('fused walk currently assumes the width-1.0 '
+                         'channel plan')
     pack = build_folded_pack(detector.variables, cfg, detector.device)
     num_heads = len(cfg.extra_features) + 2
     heads = [(pack['box_head{}'.format(i)], pack['cls_head{}'.format(i)])

@@ -280,6 +280,10 @@ def build_int8_detector(detector, calibration_images_u8, pointwise=None,
     cfg = detector.config
     if detector.model is None:
         raise ValueError('build_int8_detector needs the plain float model')
+    if getattr(cfg, 'backbone', None) != 'mobilenet_v2' or cfg.lite or \
+            cfg.width_multiplier != 1.0:
+        raise ValueError('the int8 walk covers the plain width-1.0 '
+                         'MobileNetV2 SSD only')
     mode = pointwise or _pointwise_mode()
     if mode not in POINTWISE_MODES:
         raise ValueError('unknown pointwise mode {!r}'.format(mode))

@@ -2,12 +2,19 @@
 
 The tree is ``{'params': ..., 'batch_stats': ...}`` with numpy leaves, as
 ``Detector.params`` of the JAX package holds it or as a ``.npz`` stores it
-flat (``path/to/leaf`` keys, watsor_tpu/models/zoo.py:84-86). Each flax
-``ConvBNRelu6`` at path P is a ``ConvBNReLU6`` module at the same dotted
-path: ``P/Conv_0/kernel`` (HWIO) is ``conv.weight`` (OIHW; a depthwise
-``[3, 3, 1, E]`` becomes ``[E, 1, 3, 3]``), ``P/BatchNorm_0/{scale, bias}``
-and ``batch_stats`` ``P/BatchNorm_0/{mean, var}`` are the BatchNorm's.
-A plain head conv at P has ``P/kernel`` and ``P/bias``.
+flat (``path/to/leaf`` keys, watsor_tpu/models/zoo.py:84-86). A module's
+flax path is its dotted PyTorch path, each name taken through its parent's
+``FLAX_NAMES`` where the parent has one (a ``ConvBNReLU6``'s ``conv`` and
+``bn`` are flax's ``Conv_0`` and ``BatchNorm_0``). At flax path P:
+
+- a convolution has ``P/kernel`` (HWIO; OIHW here, so a depthwise
+  ``[3, 3, 1, E]`` becomes ``[E, 1, 3, 3]``) and, with a bias, ``P/bias``;
+- a BatchNorm has ``P/{scale, bias}`` and ``batch_stats`` ``P/{mean,
+  var}``;
+- a bare parameter (the BiFPN's fast-attention ``WSM``) is ``P``.
+
+A module used more than once (EfficientDet's head convolutions, shared by
+the five levels) is one entry, as in flax.
 """
 
 import math
@@ -16,22 +23,25 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from watsor_tpu_torch.models.mobilenet_v2 import ConvBNReLU6
-
 # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
 
-def _units(model):
-    """(path tuple, module) for every ConvBNReLU6 and bare head conv."""
-    inside_unit = set()
-    for name, module in model.named_modules():
-        if isinstance(module, ConvBNReLU6):
-            inside_unit.add(name + '.conv')
-            yield tuple(name.split('.')), module
-    for name, module in model.named_modules():
-        if isinstance(module, nn.Conv2d) and name not in inside_unit:
-            yield tuple(name.split('.')), module
+def leaves(model):
+    """(flax path tuple, PyTorch dotted name, module or parameter) for every
+    convolution, BatchNorm and bare parameter of ``model``."""
+    def walk(module, path, name):
+        for pname, param in module.named_parameters(recurse=False):
+            yield path + (pname,), name + pname, param
+        names = getattr(module, 'FLAX_NAMES', {})
+        for child_name, child in module.named_children():
+            child_path = path + (names.get(child_name, child_name),)
+            child_torch = name + child_name
+            if isinstance(child, (nn.Conv2d, nn.BatchNorm2d)):
+                yield child_path, child_torch, child
+            else:
+                yield from walk(child, child_path, child_torch + '.')
+    yield from walk(model, (), '')
 
 
 def _get(tree, path):
@@ -66,21 +76,20 @@ def hwio_to_oihw(kernel):
 def load_variables(model, variables):
     """Copy a flax-layout variables tree into ``model`` (f32 modules)."""
     params = variables['params']
-    stats = variables['batch_stats']
-    for path, module in _units(model):
-        if isinstance(module, ConvBNReLU6):
-            _copy(module.conv.weight,
-                  hwio_to_oihw(_get(params, path + ('Conv_0', 'kernel'))),
-                  path)
-            bn = path + ('BatchNorm_0',)
-            _copy(module.bn.weight, _get(params, bn + ('scale',)), path)
-            _copy(module.bn.bias, _get(params, bn + ('bias',)), path)
-            _copy(module.bn.running_mean, _get(stats, bn + ('mean',)), path)
-            _copy(module.bn.running_var, _get(stats, bn + ('var',)), path)
+    stats = variables.get('batch_stats', {})
+    for path, _, leaf in leaves(model):
+        if isinstance(leaf, nn.Conv2d):
+            _copy(leaf.weight,
+                  hwio_to_oihw(_get(params, path + ('kernel',))), path)
+            if leaf.bias is not None:
+                _copy(leaf.bias, _get(params, path + ('bias',)), path)
+        elif isinstance(leaf, nn.BatchNorm2d):
+            _copy(leaf.weight, _get(params, path + ('scale',)), path)
+            _copy(leaf.bias, _get(params, path + ('bias',)), path)
+            _copy(leaf.running_mean, _get(stats, path + ('mean',)), path)
+            _copy(leaf.running_var, _get(stats, path + ('var',)), path)
         else:
-            _copy(module.weight, hwio_to_oihw(_get(params, path + ('kernel',))),
-                  path)
-            _copy(module.bias, _get(params, path + ('bias',)), path)
+            _copy(leaf, _get(params, path), path)
     return model
 
 
@@ -91,36 +100,39 @@ def export_variables(model):
     def np32(t):
         return t.detach().float().cpu().numpy()
 
-    for path, module in _units(model):
-        if isinstance(module, ConvBNReLU6):
-            _set(params, path + ('Conv_0', 'kernel'),
-                 np.transpose(np32(module.conv.weight), (2, 3, 1, 0)))
-            bn = path + ('BatchNorm_0',)
-            _set(params, bn + ('scale',), np32(module.bn.weight))
-            _set(params, bn + ('bias',), np32(module.bn.bias))
-            _set(stats, bn + ('mean',), np32(module.bn.running_mean))
-            _set(stats, bn + ('var',), np32(module.bn.running_var))
-        else:
+    for path, _, leaf in leaves(model):
+        if isinstance(leaf, nn.Conv2d):
             _set(params, path + ('kernel',),
-                 np.transpose(np32(module.weight), (2, 3, 1, 0)))
-            _set(params, path + ('bias',), np32(module.bias))
+                 np.transpose(np32(leaf.weight), (2, 3, 1, 0)))
+            if leaf.bias is not None:
+                _set(params, path + ('bias',), np32(leaf.bias))
+        elif isinstance(leaf, nn.BatchNorm2d):
+            _set(params, path + ('scale',), np32(leaf.weight))
+            _set(params, path + ('bias',), np32(leaf.bias))
+            _set(stats, path + ('mean',), np32(leaf.running_mean))
+            _set(stats, path + ('var',), np32(leaf.running_var))
+        else:
+            _set(params, path, np32(leaf))
     return {'params': params, 'batch_stats': stats}
 
 
 def init_weights(model, generator):
     """Seeded initialization with flax's defaults: lecun-normal conv
-    kernels, zero biases, identity BatchNorm."""
-    for _, module in _units(model):
-        conv = module.conv if isinstance(module, ConvBNReLU6) else module
-        fan_in = conv.weight[0].numel()
-        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    kernels, zero biases, identity BatchNorm, bare parameters one (the
+    fast-attention weights' init)."""
+    for _, _, leaf in leaves(model):
         with torch.no_grad():
-            nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            if conv.bias is not None:
-                conv.bias.zero_()
-        if isinstance(module, ConvBNReLU6):
-            module.bn.reset_parameters()
+            if isinstance(leaf, nn.Conv2d):
+                fan_in = leaf.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(leaf.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=generator)
+                if leaf.bias is not None:
+                    leaf.bias.zero_()
+            elif isinstance(leaf, nn.BatchNorm2d):
+                leaf.reset_parameters()
+            else:
+                leaf.fill_(1.0)
     return model
 
 

@@ -1,9 +1,15 @@
 """Model registry and weight loading (counterpart of
-watsor_tpu/models/zoo.py for the models this slice ports).
+watsor_tpu/models/zoo.py).
 
-Weights come from ``<model_path>/<name>.npz`` (flat ``path/to/leaf``
-arrays, the JAX package's layout); without a weight file the detector runs
-on weights initialized from a seed, with the JAX package's warning.
+Weights come from ``<model_path>/<name>.msgpack`` (flax serialization of
+the variables tree, read by models/msgpack.py without flax) or, without
+one, ``<model_path>/<name>.npz`` (flat ``path/to/leaf`` arrays); without a
+weight file the detector runs on weights initialized from a seed, with the
+JAX package's warning. Stored weights decide the head geometry, as in the
+JAX package: the class count and predictor kernel (and SSDLite or not) of
+an SSD; the FPN width and depth, head depth, fusion method and class count
+of an EfficientDet. A TFLite conversion's ``postprocess`` entry carries
+the source graph's anchors and box-coder scales.
 """
 
 import logging
@@ -11,34 +17,86 @@ import os
 
 import numpy as np
 
+from watsor_tpu_torch.models.efficientdet import (EfficientDetConfig,
+                                                  build_effdet, lite_config)
+from watsor_tpu_torch.models.msgpack import load_msgpack
 from watsor_tpu_torch.models.ssd import (SSDConfig, build_detector,
                                          resolve_device)
+from watsor_tpu_torch.ops.anchors import anchors_per_location
 from watsor_tpu_torch.models.weights import load_npz
 
 _LOGGER = logging.getLogger(__name__)
 
 MODEL_REGISTRY = {
     'ssd_mobilenet_v2': SSDConfig(),
+    'ssd_mobilenet_v1': SSDConfig(backbone='mobilenet_v1'),
+    'ssdlite_mobilenet_v2': SSDConfig(lite=True),
+    'ssd_inception_v2': SSDConfig(backbone='inception_v2'),
     'ssd_mobilenet_v2_shapes': SSDConfig(num_classes=3),
+    'efficientdet_lite0': lite_config('lite0'),
+    'efficientdet_lite1': lite_config('lite1'),
+    'efficientdet_lite2': lite_config('lite2'),
+    'efficientdet_lite3': lite_config('lite3'),
+    'efficientdet_lite4': lite_config('lite4'),
 }
 
 DEFAULT_MODEL = 'ssd_mobilenet_v2'
 
-_NOT_PORTED = 'is not ported to watsor_tpu_torch yet (ROADMAP.md, queue A)'
+
+def model_config(name):
+    """The registered config of ``name``; an ``efficientdet_<variant>``
+    outside the registry goes through ``lite_config``, which raises
+    ValueError for an unknown variant, as the JAX package's does."""
+    if name in MODEL_REGISTRY:
+        return MODEL_REGISTRY[name]
+    if name.startswith('efficientdet_'):
+        return lite_config(name.split('_', 1)[1])
+    raise ValueError('unknown model {!r}; available: {}'.format(
+        name, ', '.join(sorted(MODEL_REGISTRY))))
 
 
 def load_weights(model_path, name):
-    """A variables tree, or None if no weight file exists."""
+    """A variables tree, or None if no weight file exists; ``.msgpack``
+    takes precedence over ``.npz``."""
     if not model_path:
         return None
-    if os.path.exists(os.path.join(model_path, name + '.msgpack')):
-        raise NotImplementedError(
-            'loading {}.msgpack (flax serialization) {}; convert it to '
-            '.npz'.format(name, _NOT_PORTED))
+    msgpack_file = os.path.join(model_path, name + '.msgpack')
+    if os.path.exists(msgpack_file):
+        return load_msgpack(msgpack_file)
     npz_file = os.path.join(model_path, name + '.npz')
     if os.path.exists(npz_file):
         return load_npz(npz_file)
     return None
+
+
+def _stored_effdet_geometry(config, tree):
+    """watsor_tpu/models/zoo.py:105-126: the stored EfficientDet weights
+    decide the FPN and head shape and the class count."""
+    npc = config.anchors_per_cell
+    head = tree['cls_head']
+    ncls_total = int(np.asarray(head['predict']['pw']['kernel']).shape[-1]) \
+        // npc
+    return config._replace(
+        fpn_channels=int(np.asarray(
+            tree['resample_p6']['Conv_0']['kernel']).shape[-1]),
+        fpn_repeats=sum(1 for k in tree if k.startswith('bifpn')),
+        head_repeats=sum(1 for k in head if k.startswith('sep')),
+        fpn_weight_method=('fastattn' if 'WSM' in tree['bifpn0']['fnode0']
+                           else 'sum'),
+        num_classes=ncls_total - (1 if config.explicit_background else 0))
+
+
+def _stored_ssd_geometry(config, tree):
+    """watsor_tpu/models/zoo.py:127-151: the stored SSD weights decide
+    SSDLite or not, the predictor kernel and the class count."""
+    lite = 'box_head0_dw' in tree
+    if lite:
+        k = int(np.asarray(tree['box_head0_dw']['Conv_0']['kernel']).shape[0])
+    else:
+        k = int(np.asarray(tree['box_head0']['kernel']).shape[0])
+    npl0 = anchors_per_location(config.anchor_spec)[0]
+    num_classes = int(np.asarray(tree['cls_head0']['bias']).size) // npl0 - 1
+    return config._replace(lite=lite, head_kernel=k, num_classes=num_classes)
 
 
 def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
@@ -48,17 +106,19 @@ def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
     'cpu' for the CPU), adopting stored weights when present.
     ``active_labels`` restricts post-processing to these 1-based labels;
     ``dtype`` overrides the activation dtype; ``nms_mode`` picks the NMS
-    mode (fused or per-class)."""
-    if name not in MODEL_REGISTRY:
-        raise NotImplementedError('model {!r} {}'.format(name, _NOT_PORTED))
+    mode (fused or per-class). ``WATSOR_FUSED_HEADS=1`` runs an
+    EfficientDet's two heads as one twice-wide stack."""
+    config = model_config(name)
     device = resolve_device(device)
-    config = MODEL_REGISTRY[name]
     if active_labels:
         config = config._replace(active_labels=tuple(sorted(active_labels)))
     if dtype is not None:
         config = config._replace(dtype=dtype)
     if nms_mode is not None:
         config = config._replace(nms_mode=nms_mode)
+    effdet = isinstance(config, EfficientDetConfig)
+    if effdet and os.environ.get('WATSOR_FUSED_HEADS') == '1':
+        config = config._replace(fused_heads=True)
     variables = load_weights(model_path, name)
     anchors = None
     if variables is not None:
@@ -72,19 +132,13 @@ def build_from_zoo(name=DEFAULT_MODEL, model_path=None, seed=0,
                 config = config._replace(box_coder_scales=tuple(
                     float(s) for s in np.asarray(post['box_coder_scales'])))
         tree = variables['params']
-        if 'box_head0_dw' in tree:
-            raise NotImplementedError('SSDLite weights ' + _NOT_PORTED)
-        # the stored weights decide the predictor geometry
-        config = config._replace(
-            head_kernel=int(np.asarray(tree['box_head0']['kernel']).shape[0]))
-        npl0 = np.asarray(tree['box_head0']['bias']).size // 4
-        config = config._replace(
-            num_classes=int(np.asarray(tree['cls_head0']['bias']).size)
-            // npl0 - 1)
+        config = _stored_effdet_geometry(config, tree) if effdet else \
+            _stored_ssd_geometry(config, tree)
     else:
         _LOGGER.warning(
             "No weights for '%s' under %s — using random initialization "
             "(fine for benchmarks/synthetic shapes, not for real cameras)",
             name, model_path)
-    return build_detector(config, variables=variables, seed=seed,
-                          anchors=anchors, device=device)
+    build = build_effdet if effdet else build_detector
+    return build(config, variables=variables, seed=seed, anchors=anchors,
+                 device=device)

@@ -30,14 +30,21 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@lru_cache(maxsize=64)
+def _interp_tensor(in_size: int, out_size: int, device: torch.device):
+    """``_interp_matrix`` on ``device``, copied there once: a step captured
+    in a CUDA graph copies nothing from the host."""
+    return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+
+
 def resize_bilinear(images, out_h: int, out_w: int):
     """images [B, H, W, C] (any dtype) -> f32 [B, out_h, out_w, C]."""
     B, H, W, C = images.shape
     x = images.float()
     if (H, W) == (out_h, out_w):
         return x
-    ly = torch.from_numpy(_interp_matrix(H, out_h)).to(images.device)
-    lx = torch.from_numpy(_interp_matrix(W, out_w)).to(images.device)
+    ly = _interp_tensor(H, out_h, images.device)
+    lx = _interp_tensor(W, out_w, images.device)
     x = torch.einsum('bhwc,oh->bowc', x, ly)
     return torch.einsum('bowc,pw->bopc', x, lx)
 

@@ -1,6 +1,7 @@
 """Step profile of the port's main path on one CUDA card.
 
     python -m watsor_tpu_torch.profile_step [--path main|int8|nms]
+                                            [--model NAME[,NAME...]]
                                             [--min-blocks 132,264]
                                             [--baseline OTHER_CHECKOUT]
                                             [--int8-plans]
@@ -36,6 +37,12 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
   per-class suppression at C = 2 and C = 90, kernel against plain version;
 - the host's cost of one launch through each of the path's kernel
   wrappers (checks, output allocation, the ctypes call), at its shapes;
+- ``--model`` (instead of a path): each named family of the zoo at full
+  width (bf16, ``nms: fused_exact``, all 90 classes, 8 frames of
+  1920x1080): its forward, its fused NMS stage and its whole detect step
+  (resize included) as device time, kernel 1's launches a step, and a
+  torch.profiler window over 10 backend steps fed the frames resized to
+  the model's size (the cameras' detect planes);
 - nms: each suppression kernel at its path's shape and at C = 90, device
   and CUDA-event time, an empty kernel launched with the same grid (the
   card's floor for a launch), and the per-phase split of a build with
@@ -252,21 +259,75 @@ def profile_models(device, results, steps, path='main',
     return profile_trace(backend(walk), images, cameras, results, name)
 
 
-class _suppression:
-    """ops/nms.py's greedy suppression replaced by ``suppress`` for a
-    block."""
+def profile_family(device, results, name, steps=10):
+    """One family of the zoo on the card: forward, fused NMS and detect
+    step as device time, kernel 1's launches a step, a profiler window."""
+    from watsor_tpu_torch.models.efficientdet import EfficientDetConfig
+    from watsor_tpu_torch.ops import nms_fixed_point
+    from watsor_tpu_torch.ops.preprocess import resize_bilinear
+    from watsor_tpu_torch.workload import build_family_detector, frames_1080p
 
-    def __init__(self, suppress):
+    row = {}
+    detector = build_family_detector(device, name)
+    cfg = detector.config
+    frames = frames_1080p(device)
+    offset = 0 if isinstance(cfg, EfficientDetConfig) else 1
+    with torch.inference_mode():
+        x = resize_bilinear(frames, cfg.input_size, cfg.input_size).to(
+            cfg.dtype)
+        box_enc, logits = detector.model(x)
+        anchors = torch.from_numpy(detector.anchors).to(device)
+        fp = nms_fixed_point.fixed_point_suppress
+        fp.launches = 0
+        detector.detect_batch(frames)
+        torch.cuda.synchronize()
+        row['kernel1_launches_a_step'] = fp.launches
+        row['forward_device_ms'] = graph_ms(lambda: detector.model(x))
+        row['nms_device_ms'] = graph_ms(
+            lambda: batched_class_aware_nms_fused_late(
+                box_enc, logits[..., offset:], anchors,
+                scales=tuple(cfg.box_coder_scales),
+                iou_threshold=cfg.iou_threshold,
+                score_threshold=cfg.score_threshold,
+                max_detections=cfg.max_detections,
+                suppression=FUSED_SUPPRESSION[cfg.nms_mode]))
+        row['detect_step_device_ms'] = graph_ms(
+            lambda: detector.detect_batch(frames))
+    print('{} ({}x{}, {} anchors): forward {:.4f} ms, fused_exact NMS '
+          '{:.4f} ms, detect step {:.4f} ms on the device; kernel 1 '
+          '{} a step'.format(name, cfg.input_size, cfg.input_size,
+                             len(detector.anchors), row['forward_device_ms'],
+                             row['nms_device_ms'],
+                             row['detect_step_device_ms'],
+                             row['kernel1_launches_a_step']), flush=True)
+    cameras = ['cam{}'.format(i) for i in range(BATCH)]
+    tables, refiners = camera_filters(cameras, FRAME_HW)
+    backend = TorchDetectorBackend(detector, device, camera_tables=tables,
+                                   zone_refiners=refiners, min_batch=BATCH)
+    # the backend takes the cameras' detect planes, at the model's size
+    planes = x.float().round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    profile_trace(backend, planes, cameras, row, name, steps=steps, top=6)
+    results.setdefault('families', {})[name] = row
+
+
+class _suppression:
+    """ops/nms.py's suppression wrapper ``name`` (the greedy one by
+    default) replaced by ``suppress`` for a block; ``saved`` is the
+    wrapper it replaced."""
+
+    def __init__(self, suppress, name='fixed_point_suppress'):
         self.suppress = suppress
+        self.name = name
 
     def __enter__(self):
         from watsor_tpu_torch.ops import nms
-        self.saved = nms.fixed_point_suppress
-        nms.fixed_point_suppress = self.suppress
+        self.saved = getattr(nms, self.name)
+        setattr(nms, self.name, self.suppress)
+        return self
 
     def __exit__(self, *exc):
         from watsor_tpu_torch.ops import nms
-        nms.fixed_point_suppress = self.saved
+        setattr(nms, self.name, self.saved)
 
 
 def profile_trace(be, images, cameras, results, label, steps=10, top=12,
@@ -869,6 +930,10 @@ def main(argv=None):
                         default='main',
                         help='the main path (fused walk), the int8 path, '
                              'or the two suppression kernels alone')
+    parser.add_argument('--model', default=None,
+                        help='instead of a path, profile these families of '
+                             'the zoo (comma list; "all" for every family '
+                             'of chip_smoke.py phase 4)')
     parser.add_argument('--min-blocks', default=str(fused_block.MIN_BLOCKS),
                         help='fused-block launch plans to time: values of '
                              'the plan\'s MIN_BLOCKS, comma list')
@@ -899,6 +964,15 @@ def main(argv=None):
     print('torch {}, CUDA {}'.format(torch.__version__, torch.version.cuda),
           flush=True)
     results = {'card': card, 'batch': BATCH, 'path': args.path}
+    if args.model:
+        from watsor_tpu_torch.workload import FAMILIES
+        names = FAMILIES if args.model == 'all' else args.model.split(',')
+        results['path'] = 'models'
+        for name in names:
+            profile_family(device, results, name.strip())
+            torch.cuda.empty_cache()
+        print(json.dumps(results), flush=True)
+        return
     if args.path == 'nms':
         profile_nms(device, results, args.baseline)
         print(json.dumps(results), flush=True)

@@ -11,6 +11,10 @@ demo zone mask (config/porch_mask.png). Two paths:
 - the int8 path: WATSOR_QUANTIZE=int8_full with
   WATSOR_INT8_POINTWISE=pallas, calibrated on seeded frames, bf16 heads,
   ``nms: exact``.
+
+And the other families of the zoo (FAMILIES), each at full width with
+random weights from a seed, bf16, ``nms: fused_exact``, over all 90
+classes, fed BATCH frames of 1920x1080.
 """
 
 import os
@@ -29,6 +33,10 @@ WATCHED = ('person', 'car')
 DETECT = [{'person': {'confidence': 10, 'area': 1}},
           {'car': {'confidence': 10, 'area': 1, 'zones': [1, 2]}}]
 MASK_PATH = os.path.join(ROOT, 'config', 'porch_mask.png')
+# the zoo's other families, as chip_smoke.py's phase 4 runs them
+FAMILIES = ('ssd_mobilenet_v1', 'ssdlite_mobilenet_v2', 'ssd_inception_v2',
+            'efficientdet_lite0', 'efficientdet_lite1', 'efficientdet_lite2',
+            'efficientdet_lite3', 'efficientdet_lite4')
 # (H=W, C_in, E, C_out) of the 12 fused blocks of MobileNetV2 at 300x300
 FUSED_SHAPES = [(75, 24, 144, 24)] + [(38, 32, 192, 32)] * 2 + \
     [(19, 64, 384, 64)] * 3 + [(19, 64, 384, 96)] + [(19, 96, 576, 96)] * 2 + \
@@ -80,6 +88,21 @@ def build_main_path_detector(device, fused=True, seed=0):
                               nms_mode='fused_exact', dtype=torch.bfloat16,
                               device=device)
     return build_fused_detector(detector) if fused else detector
+
+
+def build_family_detector(device, name, nms_mode='fused_exact',
+                          dtype=torch.bfloat16, seed=0):
+    """The zoo's ``name`` on ``device`` over all its classes."""
+    from watsor_tpu_torch.models.zoo import build_from_zoo
+    return build_from_zoo(name, None, seed=seed, nms_mode=nms_mode,
+                          dtype=dtype, device=device)
+
+
+def frames_1080p(device, batch=BATCH, seed=0):
+    """Seeded uint8 frames [batch, 1080, 1920, 3] on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 256, (batch,) + FRAME_HW + (3,), generator=g,
+                         dtype=torch.uint8, device=device)
 
 
 def calibration_frames(size=300, n=BATCH, seed=0):
