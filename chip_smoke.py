@@ -39,15 +39,37 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    outputs against the f32 plain model (TF32 off), and times the step
    from a CUDA-graph replay; then efficientdet_lite0 under ``nms: exact``,
    holding its pallas_suppress launch the same way;
+5. the fleet and the device overlay (WATSOR_FLEET, WATSOR_DEVICE_RENDER):
+   a. render_boxes at [16, 1080, 1920, 3] with 100 box slots a frame (30
+      valid), bit-identical to its CPU result with TF32 off and on, timed
+      in both modes against its bound (the frames' bytes in and out); then
+      a DeviceRenderer round of 16 concurrent 1080p requests (H2D, render,
+      one D2H);
+   b. the main path's detector behind a FleetBackend over make_mesh() (one
+      card, data 1) and over two shards on two streams of the card, at 16
+      and 32 detect planes of 300x300: the packed output bit-identical to
+      TorchDetectorBackend's (each shard's to it on the shard's frames
+      alone), one fixed_point_suppress and 12 fused_inverted_residual
+      launches a shard a step, each of them held against its plain version
+      on its own inputs (kernel 1 bit for bit, kernel 2 within phase 1's
+      tolerances) at the fleet's shapes, and the step's wall time beside
+      TorchDetectorBackend's;
+   c. TorchApplication with WATSOR_FLEET=1 and WATSOR_FUSED_BLOCKS=1 on 16
+      synthetic cameras, device render on by default: one
+      ``detector-fleet`` serves, viewers on every camera's MJPEG stream
+      make its DeviceRenderer draw at least one batch, with no failure;
 
-and last checks that nothing of JAX, and nothing of the JAX package
-``watsor_tpu``, was imported on the way. The f32 comparisons run with TF32
+and last checks that no thread the phases started is still running (the
+applications must have ended their HTTP request threads) and that nothing
+of JAX, and nothing of the JAX package ``watsor_tpu``, was imported on
+the way. The f32 comparisons run with TF32
 off; the paths and the boots run under the process defaults, as users
 run them. It uses one
 card, the first visible one. Any failed phase makes the script exit
 non-zero without the final line. Weights are random, from a fixed seed.
 Output: versions, the card, build time, per-phase lines, a JSON line of
-kernel results, and as the last line ``{"ok": true, "device": {...}}``.
+kernel results (each kernel's launches are those of its path's run in
+phase 2), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -87,6 +109,8 @@ INT8_MIN_COSINE = 0.95
 INT8_CALLS = 38
 # kernel-2 launches in one forward of the fused walk: its 12 blocks
 FUSED_CALLS = 12
+# synthetic cameras of the fleet application (phase 5c)
+FLEET_CAMERAS = 16
 
 
 def log(*args):
@@ -699,11 +723,12 @@ def _synthetic_cameras(text, n):
 
 
 def phase_app(label, env, nms=None, model=None, cameras=None,
-              deadline_s=600):
+              deadline_s=600, inspect=None):
     """TorchApplication on config/config.yaml, with the environment knobs
     ``env`` (None removes one), ``nms`` set in the copied config, ``model``
     as ``--model`` and, with ``cameras``, that many synthetic cameras in
-    place of the demo camera, until detections flow."""
+    place of the demo camera, until detections flow; then, with
+    ``inspect``, ``inspect(app, url)`` while the application runs."""
     from watsor_tpu_torch.main import (TorchApplication,
                                        _parse_commandline_arguments)
 
@@ -757,6 +782,8 @@ def phase_app(label, env, nms=None, model=None, cameras=None,
             else:
                 raise AssertionError('no detections flowed within {} s: {}'
                                      .format(deadline_s, metrics))
+            if inspect is not None:
+                inspect(app, url)
         finally:
             app._stop_main.set()
             thread.join(60)
@@ -768,12 +795,295 @@ def phase_app(label, env, nms=None, model=None, cameras=None,
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def phase_overlay(device):
+    """phase5a: render_boxes at [16, 1080, 1920, 3] with 100 box slots a
+    frame, bit-identical to its CPU result with TF32 on and off, timed in
+    both modes against its bound; then one DeviceRenderer batch of 16
+    frames, H2D, render and D2H."""
+    import torch
+    from watsor_tpu_torch.ops.overlay import (coco_color_table, pixel_index,
+                                              render_boxes)
+    from watsor_tpu_torch.output.device_render import DeviceRenderer
+    from watsor_tpu_torch.workload import (OVERLAY_BATCH, Bound,
+                                           overlay_inputs, overlay_work)
+
+    frames, boxes, classes = overlay_inputs()
+    B, H, W, _ = frames.shape
+    cpu = [torch.from_numpy(a) for a in (frames, boxes, classes)]
+    start = time.perf_counter()
+    want = render_boxes(*cpu, coco_color_table('cpu'))
+    cpu_s = time.perf_counter() - start
+    dev = [t.to(device) for t in cpu]
+    table = coco_color_table(device)
+    index = pixel_index(H, W, device)
+    nbytes, ops = overlay_work(B, H, W, boxes.shape[1])
+    drawn = int((want.numpy() != frames).any(-1).sum())
+    line = []
+    for mode in (False, True):
+        with tf32(mode):
+            got = render_boxes(*dev, table, index=index)
+            torch.cuda.synchronize()
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(
+                    'render_boxes TF32 {}: {} of {} bytes differ from the CPU'
+                    .format('on' if mode else 'off',
+                            int((got.cpu() != want).sum()), want.numel()))
+            ms = time_ms(lambda: render_boxes(*dev, table, index=index),
+                         reps=5, inner=5)
+        ops_ms = Bound().add(0, **{'tf32' if mode else 'f32': ops}).ms
+        line.append('TF32 {} {:.4f} ms (operation bound {:.4f} ms)'.format(
+            'on' if mode else 'off', ms, ops_ms))
+    log('phase5a overlay render_boxes [{}, {}, {}, 3], {} slots, {} valid '
+        'a frame, thickness 2: bit-identical to the CPU with TF32 off and '
+        'on ({} pixels drawn); {}; byte bound {:.4f} ms ({:.1f} MB in and '
+        'out); the CPU reference {:.2f} s'.format(
+            B, H, W, boxes.shape[1], int((classes > 0).sum(-1).max()), drawn,
+            ', '.join(line), Bound().add(nbytes).ms, nbytes / 1e6, cpu_s))
+
+    # the round trip: 16 cameras submit at once, one batch renders
+    renderer = DeviceRenderer(window_ms=50.0, max_batch=OVERLAY_BATCH,
+                              device=device)
+    walls = []
+    try:
+        for rnd in range(6):
+            results = [None] * B
+            barrier = threading.Barrier(B + 1)
+
+            def submit(i):
+                barrier.wait(30)
+                results[i] = renderer.render(frames[i], boxes[i],
+                                             classes[i], timeout=60)
+
+            threads = [threading.Thread(target=submit, args=(i,))
+                       for i in range(B)]
+            for thread in threads:
+                thread.start()
+            barrier.wait(30)
+            t0 = time.perf_counter()
+            for thread in threads:
+                thread.join(60)
+            walls.append(1e3 * (time.perf_counter() - t0))
+            if rnd == 0:
+                for i in range(B):
+                    if not np.array_equal(results[i], want[i].numpy()):
+                        raise AssertionError('DeviceRenderer frame {} differs '
+                                             'from the CPU render'.format(i))
+    finally:
+        renderer.close()
+    if renderer.failures or renderer.timeouts or \
+            renderer.frames != 6 * B:
+        raise AssertionError('DeviceRenderer: {} failures, {} timeouts, {} '
+                             'frames'.format(renderer.failures,
+                                             renderer.timeouts,
+                                             renderer.frames))
+    log('phase5a DeviceRenderer: {} frames of {}x{} in {} batches (mean '
+        '{:.1f} a batch), equal to the CPU render; a round of {} concurrent requests '
+        '(gather, H2D, render, one D2H) median {:.3f} ms, first {:.3f} ms'
+        .format(renderer.frames, W, H, renderer.batches,
+                renderer.frames / renderer.batches, B,
+                statistics.median(walls[1:]), walls[0]))
+
+
+@contextlib.contextmanager
+def _recorded_kernels(calls):
+    """The path's calls of kernels 1 and 2 (as ops/nms.py and
+    models/ssd_fused.py make them) recorded into ``calls`` with a copy of
+    each output: (name, args, kwargs, output). The kernels still run."""
+    from watsor_tpu_torch.models import ssd_fused
+    from watsor_tpu_torch.ops import nms
+
+    def recorder(wrapper):
+        def record(*args, **kwargs):
+            out = wrapper(*args, **kwargs)
+            calls.append((wrapper.__name__, args, kwargs, out.clone()))
+            return out
+        return record
+
+    saved = [(module, name, getattr(module, name)) for module, name in (
+        (nms, 'fixed_point_suppress'),
+        (ssd_fused, 'fused_inverted_residual'))]
+    for module, name, wrapper in saved:
+        setattr(module, name, recorder(wrapper))
+    try:
+        yield
+    finally:
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
+
+
+def _hold_against_plain(calls):
+    """Each recorded launch against its plain version on its own inputs:
+    kernel 1 bit for bit, kernel 2 within phase 1's tolerances. Returns the
+    shapes held, by kernel."""
+    import torch
+    from watsor_tpu_torch.ops import fused_block, nms_fixed_point
+    plain = {'fixed_point_suppress':
+             nms_fixed_point.fixed_point_suppress_plain,
+             'fused_inverted_residual':
+             fused_block.fused_inverted_residual_plain}
+    shapes = {name: [] for name in plain}
+    for name, args, kwargs, got in calls:
+        want = plain[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        shape = tuple(args[0].shape)
+        shapes[name].append(shape)
+        if name == 'fixed_point_suppress':
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    'fixed_point_suppress {}: {} of {} keep bits differ from '
+                    'the plain version'.format(shape, int((got != want).sum()),
+                                               got.numel()))
+            continue
+        diff = (got.float() - want.float()).abs()
+        if bool((diff > FUSED_ATOL + FUSED_RTOL * want.float().abs()).any()) \
+                or float(diff.mean()) > FUSED_MEAN_ATOL:
+            raise AssertionError('fused_inverted_residual {}: max err {} mean '
+                                 '{}'.format(shape, float(diff.max()),
+                                             float(diff.mean())))
+    return shapes
+
+
+def phase_fleet(device):
+    """phase5b: the main path's detector behind a FleetBackend over one
+    card (data 1) and over two shards on two streams of it, at 16 and 32
+    detect planes: bit-identical to TorchDetectorBackend (each shard to it
+    on the shard's frames alone), the kernels launched once a shard a step
+    (kernel 1) and 12 times a shard a forward (kernel 2), each of those
+    launches held against its plain version on its own inputs, and the
+    step's wall time beside the single backend's."""
+    from watsor_tpu_torch.detection import FleetBackend, TorchDetectorBackend
+    from watsor_tpu_torch.ops import fused_block, nms_fixed_point
+    from watsor_tpu_torch.parallel import FleetDetector, make_mesh
+    from watsor_tpu_torch.workload import (FLEET_BATCHES,
+                                           build_main_path_detector,
+                                           camera_filters, detect_planes,
+                                           fleet_against_single)
+
+    counters = (nms_fixed_point.fixed_point_suppress,
+                fused_block.fused_inverted_residual)
+    detector = build_main_path_detector(device)
+    cams = ['cam{}'.format(i) for i in range(max(FLEET_BATCHES))]
+    tables, refiners = camera_filters(cams)
+    planes = detect_planes(max(FLEET_BATCHES), seed=4)
+    single = TorchDetectorBackend(detector, device, camera_tables=tables,
+                                  zone_refiners=refiners)
+    meshes = (('data 1', make_mesh()),
+              ('2 shards', make_mesh(devices=[device, device])))
+    for label, mesh in meshes:
+        backend = FleetBackend(FleetDetector(mesh, detector),
+                               camera_tables=tables, zone_refiners=refiners)
+        n_shards = mesh.shape['data']
+        for batch in FLEET_BATCHES:
+            calls = []
+            row = fleet_against_single(
+                backend, single, planes[:batch], cams[:batch], counters,
+                reps=15, around=lambda: _recorded_kernels(calls))
+            launches = row['launches']
+            if launches['fixed_point_suppress'] != n_shards or \
+                    launches['fused_inverted_residual'] != \
+                    FUSED_CALLS * n_shards:
+                raise AssertionError('fleet {} batch {}: launches {}'.format(
+                    label, batch, launches))
+            if not all(row['equal']):
+                raise AssertionError(
+                    'fleet {} batch {}: shards equal to TorchDetectorBackend '
+                    '{}'.format(label, batch, row['equal']))
+            shapes = _hold_against_plain(calls)
+            fp_shapes = sorted(set(shapes['fixed_point_suppress']))
+            log('phase5b fleet {} ({}) batch {}: {} shard(s) of {}, packed '
+                'output bit-identical to TorchDetectorBackend{}, {} '
+                'detections kept, launches {} (this step alone); '
+                'fixed_point_suppress at {} bit-identical to its plain '
+                'version and the {} fused_inverted_residual launches within '
+                'tolerance; step wall median {:.3f} / {:.3f} ms, '
+                'TorchDetectorBackend {:.3f} / {:.3f} ms'.format(
+                    label, backend.device_name, batch, n_shards, row['shard'],
+                    ' on each shard\'s frames' if n_shards > 1 else '',
+                    row['kept'], launches, fp_shapes,
+                    len(shapes['fused_inverted_residual']),
+                    *row['fleet_wall_ms'], *row['single_wall_ms']))
+
+
+def _watch(url, camera, frames, stop):
+    """Read ``frames`` frames of a camera's MJPEG stream (the visual effects
+    run only while someone watches)."""
+    with urllib.request.urlopen('{}/video/mjpeg/{}'.format(url, camera),
+                                timeout=30) as stream:
+        seen = 0
+        while seen < frames and not stop.is_set():
+            chunk = stream.read(65536)
+            if not chunk:
+                return
+            seen += chunk.count(b'--frame')
+
+
+def fleet_app_check(app, url, n_cameras, watch_s=20.0):
+    """phase5c: the fleet's one detector serves; viewers on every camera
+    make the shared DeviceRenderer draw, with no failure."""
+    names = [d.name for d in app._detectors]
+    if names != ['detector-fleet']:
+        raise AssertionError('detectors {}'.format(names))
+    renderer = app._device_renderer
+    if renderer is None:
+        raise AssertionError('no DeviceRenderer under WATSOR_FLEET=1')
+    stop = threading.Event()
+    errors = []
+
+    def watch(camera):
+        try:
+            _watch(url, camera, 1000, stop)
+        except OSError as exc:
+            errors.append(exc)
+
+    viewers = [threading.Thread(target=watch, args=('cam{}'.format(i),),
+                                daemon=True) for i in range(n_cameras)]
+    for viewer in viewers:
+        viewer.start()
+    time.sleep(watch_s)
+    stop.set()
+    for viewer in viewers:
+        viewer.join(60)
+    with urllib.request.urlopen(url + '/metrics', timeout=5) as r:
+        detector = json.loads(r.read())['detectors'][0]
+    log('phase5c fleet application: detector {} ({}), {} cameras, fps '
+        '{}, latency p50 {} ms p95 {} ms; DeviceRenderer on {}: {} batches, '
+        '{} frames, mean batch {:.2f}, {} timeouts, {} failures; {} viewer '
+        'errors'.format(
+            names[0], detector['name'], n_cameras, detector['fps'],
+            detector['latency_ms_p50'], detector['latency_ms_p95'],
+            renderer.device, renderer.batches, renderer.frames,
+            renderer.frames / max(renderer.batches, 1), renderer.timeouts,
+            renderer.failures, len(errors)))
+    if renderer.batches < 1 or renderer.failures:
+        raise AssertionError('DeviceRenderer rendered {} batches with {} '
+                             'failures'.format(renderer.batches,
+                                               renderer.failures))
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
     return sorted(name for name in sys.modules
                   if name.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                             'watsor_tpu'))
+
+
+def _threads_left(grace_s=30.0):
+    """Threads other than this one still running after every phase ended,
+    given ``grace_s`` to finish; each one's stack goes to stderr."""
+    deadline = time.time() + grace_s
+    for thread in threading.enumerate():
+        if thread is not threading.current_thread():
+            thread.join(max(deadline - time.time(), 0.0))
+    frames = sys._current_frames()
+    alive = [t for t in threading.enumerate()
+             if t is not threading.current_thread()]
+    for thread in alive:
+        frame = frames.get(thread.ident)
+        print('thread {} still running:\n{}'.format(
+            thread.name, ''.join(traceback.format_stack(frame)) if frame
+            else ''), file=sys.stderr, flush=True)
+    return sorted(t.name for t in alive)
 
 
 def main():
@@ -888,7 +1198,18 @@ def main():
                            model='efficientdet_lite0', cameras=BATCH), None),
         ('phase4 families', lambda: phase_families(device), None),
         ('phase4 families exact', lambda: phase_families_exact(device),
-         None)]
+         None),
+        ('phase5a overlay', lambda: phase_overlay(device), None),
+        ('phase5b fleet', lambda: phase_fleet(device), None),
+        ('phase5c fleet application',
+         lambda: phase_app('phase5c application (WATSOR_FLEET=1, {} '
+                           'synthetic cameras)'.format(FLEET_CAMERAS),
+                           {'WATSOR_FLEET': '1', 'WATSOR_FUSED_BLOCKS': '1',
+                            'WATSOR_QUANTIZE': None,
+                            'WATSOR_INT8_POINTWISE': None},
+                           cameras=FLEET_CAMERAS,
+                           inspect=lambda app, url: fleet_app_check(
+                               app, url, FLEET_CAMERAS)), None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:
@@ -902,6 +1223,10 @@ def main():
             failures.append(name)
             log('{} FAILED'.format(name))
     log('phases: {:.1f} s'.format(time.perf_counter() - start))
+    alive = _threads_left()
+    log('threads still running: {}'.format(', '.join(alive) or 'none'))
+    if alive:
+        failures.append('threads')
     jax_modules = _jax_modules()
     if jax_modules:
         failures.append('no-jax check')
@@ -909,6 +1234,7 @@ def main():
     if failures:
         log('chip_smoke: failed phases: {}'.format(', '.join(failures)))
         return 1
+    # each kernel's launches in its own path's run (phase 2)
     for entry in results:
         entry['launches'] = state['launches'][entry['name']]
     log(json.dumps({'kernels': [

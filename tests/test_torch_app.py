@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from watsor_tpu_torch.detection import TorchDetectorBackend
 from watsor_tpu_torch.detection.detector import resolve_device_pool
 from watsor_tpu_torch.main import (TorchApplication,
                                    _parse_commandline_arguments)
@@ -58,8 +59,10 @@ def _args(tmp_path, extra='', model='ssd_mobilenet_v2_shapes'):
         '-m', str(tmp_path / 'no_weights')])
 
 
-def _serve(tmp_path, extra='', model='ssd_mobilenet_v2_shapes'):
-    """Run TorchApplication until detections flow; returns (app, metrics)."""
+def _serve(tmp_path, extra='', model='ssd_mobilenet_v2_shapes',
+           during=None):
+    """Run TorchApplication until detections flow, then ``during(app, url)``
+    where given; returns (app, metrics)."""
     port, args = _args(tmp_path, extra, model)
     app = TorchApplication(args)
     thread = threading.Thread(target=app.run, daemon=True)
@@ -90,11 +93,76 @@ def _serve(tmp_path, extra='', model='ssd_mobilenet_v2_shapes'):
         assert err.value.code == 501
         # the camera's filters went to the device as tables
         assert set(app._camera_tables) == {'cam_t'}
+        if during is not None:
+            during(app, url)
     finally:
         app._stop_main.set()
         thread.join(30)
     assert not thread.is_alive()
     return app, metrics
+
+
+def _stalled_viewer(port, path):
+    """A client that asks for ``path``, reads the first bytes of the answer
+    and then reads no more."""
+    client = socket.create_connection(('127.0.0.1', port), timeout=10)
+    client.sendall('GET {} HTTP/1.1\r\nHost: localhost\r\n\r\n'
+                   .format(path).encode())
+    assert client.recv(256).startswith(b'HTTP/1.1 200')
+    return client
+
+
+def test_http_server_cuts_a_stalled_stream_at_shutdown():
+    """A viewer that stopped reading blocks its request thread in a write;
+    close_requests cuts the connection and the thread ends."""
+    from watsor_tpu_torch.main import make_http_server
+
+    def app(environ, start_response):
+        start_response('200 OK', [('Content-Type',
+                                   'application/octet-stream')])
+        return iter(lambda: b'x' * 65536, None)       # never ends
+
+    server = make_http_server(0, app, host='127.0.0.1')
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    client = _stalled_viewer(server.server_address[1], '/')
+    try:
+        deadline = time.time() + 10
+        while not server._open and time.time() < deadline:
+            time.sleep(0.05)
+        handlers = [t for t in server._open.values() if t is not None]
+        time.sleep(0.5)                 # the socket buffers fill
+        assert handlers and all(t.is_alive() for t in handlers)
+        server.shutdown()
+        assert server.close_requests(grace_s=0.5) == []
+        serving.join(5)
+        assert not serving.is_alive()
+        assert not any(t.is_alive() for t in handlers)
+    finally:
+        client.close()
+
+
+def test_shutdown_ends_the_mjpeg_request_threads(tmp_path, monkeypatch):
+    """The application's shutdown leaves no HTTP request thread behind,
+    even for an MJPEG viewer that stopped reading."""
+    _clear_knobs(monkeypatch)
+    seen = {}
+
+    def during(app, url):
+        port = int(url.rsplit(':', 1)[1])
+        seen['client'] = _stalled_viewer(port, '/video/mjpeg/cam_t')
+        time.sleep(1.0)
+        seen['threads'] = [t for t in app._http_server._open.values()
+                           if t is not None]
+
+    try:
+        app, _ = _serve(tmp_path, during=during)
+    finally:
+        if 'client' in seen:
+            seen['client'].close()
+    assert seen['threads']
+    assert not any(t.is_alive() for t in seen['threads'])
+    assert app._http_server._open == {}
 
 
 _KNOBS = ('WATSOR_QUANTIZE', 'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS',
@@ -282,15 +350,110 @@ def test_device_pool_refuses_a_silent_cpu_fallback(monkeypatch):
     assert [d.type for d in resolve_device_pool('cpu:1')] == ['cpu']
 
 
+def _effect_types(app):
+    """The effect classes of every camera's visual effects and snapshot."""
+    return {type(e).__name__ for c in app._cameras
+            for e in c.visual_effects._effects + c.snapshot._effects}
+
+
+def _set_up(tmp_path, monkeypatch, extra='', **knobs):
+    """TorchApplication built (not run) on the CPU pool under ``knobs``."""
+    _clear_knobs(monkeypatch)
+    for knob, value in knobs.items():
+        monkeypatch.setenv(knob, value)
+    _, args = _args(tmp_path, extra)
+    app = TorchApplication(args)
+    app._setup(app._read_config())
+    return app
+
+
 @pytest.mark.parametrize('knob,value', [('WATSOR_FLEET', '1'),
                                         ('WATSOR_DEVICE_RENDER', '1')])
 def test_unported_knobs_raise(tmp_path, monkeypatch, knob, value):
-    monkeypatch.setenv('WATSOR_DEVICE_POOL', 'cpu:1')
-    monkeypatch.setenv(knob, value)
-    _, args = _args(tmp_path)
+    """The fleet and device-render knobs, which raised until the port had
+    their paths, now boot on the CPU pool: WATSOR_FLEET=1 builds one
+    ``detector-fleet`` over a FleetBackend with device render on by
+    default; WATSOR_DEVICE_RENDER=1 alone puts DeviceDrawEffect over the
+    usual detectors."""
+    from watsor_tpu_torch.detection import FleetBackend
+    app = _set_up(tmp_path, monkeypatch, **{knob: value})
+    assert 'DeviceDrawEffect' in _effect_types(app)
+    assert 'DrawEffect' not in _effect_types(app)
+    assert app._device_renderer.device == torch.device('cpu')
+    names = [d.name for d in app._detectors]
+    backend = app._detectors[0]._backend
+    if knob == 'WATSOR_FLEET':
+        assert names == ['detector-fleet']
+        assert isinstance(backend, FleetBackend)
+        assert backend.device_name == 'CPU MESH {data: 1}'
+        assert app._mesh.devices == (torch.device('cpu'),)
+    else:
+        assert names == ['detector1'] and app._mesh is None
+        assert isinstance(backend, TorchDetectorBackend)
+
+
+def test_fleet_with_host_drawing(tmp_path, monkeypatch):
+    """WATSOR_DEVICE_RENDER=0 keeps cv2 drawing under the fleet."""
+    app = _set_up(tmp_path, monkeypatch, WATSOR_FLEET='1',
+                  WATSOR_DEVICE_RENDER='0')
+    assert [d.name for d in app._detectors] == ['detector-fleet']
+    assert 'DrawEffect' in _effect_types(app)
+    assert 'DeviceDrawEffect' not in _effect_types(app)
+    assert app._device_renderer is None
+
+
+MASKED = """
+  - cam_m:
+      width: 160
+      height: 120
+      input: synthetic://shapes
+      mask: {mask}
+      detect:
+        - person: {{confidence: 10, area: 1, zones: [1]}}
+      ffmpeg:
+        decoder: [-i, -f, rawvideo, -pix_fmt, rgb24]
+"""
+
+
+def test_fleet_keeps_contours_for_a_masked_camera(tmp_path, monkeypatch):
+    """A camera with a zone mask keeps the host chain (blend, contours);
+    the maskless camera beside it draws on the device."""
+    import cv2
+    mask = tmp_path / 'mask.png'
+    image = np.zeros((120, 160, 4), np.uint8)
+    image[10:60, 10:80, 3] = 255
+    cv2.imwrite(str(mask), image)
+    _clear_knobs(monkeypatch)
+    monkeypatch.setenv('WATSOR_FLEET', '1')
+    port, args = _args(tmp_path)
+    config = tmp_path / 'config.yaml'
+    config.write_text(config.read_text() + MASKED.format(mask=mask))
     app = TorchApplication(args)
-    with pytest.raises(SystemExit, match='ROADMAP'):
-        app._setup(app._read_config())
+    app._setup(app._read_config())
+    effects = {c.name: [type(e).__name__ for e in c.visual_effects._effects]
+               for c in app._cameras}
+    assert effects['cam_m'][-1] == 'DrawEffectWithContours'
+    assert effects['cam_t'][-1] == 'DeviceDrawEffect'
+    assert [d.name for d in app._detectors] == ['detector-fleet']
+
+
+def test_fleet_app_equals_single_device(tmp_path, monkeypatch):
+    """testing/fleet_app.run_app on the CPU pool: 4 cameras of 96x64, zone
+    masks, device filters, the tiny SSD, once with WATSOR_FLEET=1 and once
+    without; the MQTT detail payloads agree camera by camera."""
+    from watsor_tpu_torch.models import zoo
+    from watsor_tpu_torch.testing.fleet_app import run_app, tiny_ssd_config
+    _clear_knobs(monkeypatch)
+    monkeypatch.setitem(zoo.MODEL_REGISTRY, 'ssd_tiny_test',
+                        tiny_ssd_config())
+    kw = dict(n_cams=4, frame_hw=(64, 96), device_pool='cpu:1',
+              steady_timeout=60, details_timeout=60, min_camera_frac=1.0)
+    fleet, fleet_name = run_app(tmp_path, True, **kw)
+    single, single_name = run_app(tmp_path, False, **kw)
+    assert fleet_name == 'CPU MESH {data: 1}' and single_name == 'CPU 0'
+    assert sorted(fleet) == sorted(single) == ['cam00', 'cam01', 'cam02',
+                                               'cam03']
+    assert fleet == single
 
 
 @pytest.mark.parametrize('precision,tf32', [('32', False), ('16', True)])

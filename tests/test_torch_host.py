@@ -1,13 +1,18 @@
 """The port's copies of the host layers against the JAX package's
 originals, on the same inputs: configuration, zone masks, the tracker, the
-fairness queue, the detector task's frame header, and the native video
-library. Every comparison is exact."""
+fairness queue, the detector task's frame header, the native video
+library and the test broker; and every copy names its source on its first
+line. Every comparison is exact."""
 
+import ast
+import glob
 import os
+import re
 from queue import Empty
 
 import cv2
 import numpy as np
+import pytest
 
 from watsor_tpu.config import normalize as j_normalize
 from watsor_tpu.config import parse as j_parse
@@ -188,3 +193,73 @@ def test_native_library_builds_from_the_port():
         # only then load the JAX package's library, whose build directory
         # other test files share
         assert got == outcome(j_native)
+
+
+def test_a_failed_native_load_is_kept(monkeypatch, tmp_path):
+    """Where the library cannot be built (the card's machine has no libav),
+    the first load's NativeUnavailable is raised again without another
+    build: the MJPEG viewers encode a JPEG a frame, each through load()."""
+    builds = []
+
+    def failing_build():
+        builds.append(1)
+        raise native.NativeUnavailable('native build failed: no libav')
+
+    monkeypatch.setattr(native, '_lib', None)
+    monkeypatch.setattr(native, '_lib_error', None)
+    monkeypatch.setattr(native, '_LIB_PATH', str(tmp_path / 'missing.so'))
+    monkeypatch.setattr(native, '_build', failing_build)
+    errors = []
+    for _ in range(3):
+        with pytest.raises(native.NativeUnavailable) as err:
+            native.load()
+        errors.append(err.value)
+    assert len(builds) == 1
+    assert errors[0] is errors[1] is errors[2]
+
+
+def _copies():
+    """(copy, its source) for every file of the port whose first line reads
+    '# Copy of <source>'."""
+    found = []
+    for path in sorted(glob.glob(os.path.join(ROOT, 'watsor_tpu_torch', '**',
+                                              '*'), recursive=True)):
+        if not path.endswith(('.py', 'Makefile')):
+            continue
+        with open(path) as f:
+            match = re.match(r'# Copy of (watsor_tpu/\S+?)[.:;]?(\s|$)',
+                             f.readline())
+        if match:
+            found.append((os.path.relpath(path, ROOT), match.group(1)))
+    return found
+
+
+COPIES = _copies()
+
+
+@pytest.mark.parametrize('copy,source', COPIES,
+                         ids=[copy for copy, _ in COPIES])
+def test_copies_name_their_source(copy, source):
+    assert os.path.isfile(os.path.join(ROOT, source)), source
+    assert copy.split(os.sep, 1)[1] == source.split('/', 1)[1], \
+        'a copy keeps its source\'s place in the package'
+
+
+def _code(path):
+    """The module's syntax tree without its docstring, dumped."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+def test_broker_copy_is_the_original():
+    """testing/broker.py is copied with only its docstring's path adapted:
+    the port's fleet rig hosts its MQTT client on the same broker as the
+    JAX package's."""
+    assert ('watsor_tpu_torch/testing/broker.py',
+            'watsor_tpu/testing/broker.py') in COPIES
+    assert _code(os.path.join(ROOT, 'watsor_tpu_torch', 'testing',
+                              'broker.py')) == \
+        _code(os.path.join(ROOT, 'watsor_tpu', 'testing', 'broker.py'))

@@ -94,6 +94,20 @@ def _unpack_outputs(packed, n, with_zones, max_zones):
     return boxes, scores, classes, valid, zones_hit
 
 
+def _finish(packed, start, n, with_zones, senders, zone_refiners):
+    """The detect_batch tuple from a step's packed result on the host
+    (dispatched at ``start``), with the exact zone refinement."""
+    device_ms = (perf_counter() - start) * 1000.0
+    boxes, scores, classes, valid, zones_hit = _unpack_outputs(
+        packed, n, with_zones, MAX_ZONES)
+    if zones_hit is None:
+        return boxes, scores, classes, valid, device_ms
+    if senders is not None and zone_refiners:
+        _refine_zones(zone_refiners, senders, boxes, scores, classes, valid,
+                      zones_hit)
+    return boxes, scores, classes, valid, device_ms, zones_hit
+
+
 class DetectorBackend:
     """Protocol: batched uint8 frames in, padded detection arrays out."""
 
@@ -137,6 +151,51 @@ class _FilterTableStore:
         return idx
 
 
+class PinnedStaging:
+    """Host staging for H2D copies: on the card two pinned buffers per
+    padded shape, used in turn, each refilled only after every copy made
+    from it has finished; on the CPU a fresh tensor a batch."""
+
+    def __init__(self, pinned):
+        self._pinned = pinned
+        self._slots = {}           # shape -> two (buffer, copy events)
+        self._sel = 0
+
+    def fill(self, rows, shape):
+        """``rows`` (a batch array, or a list of frames) copied into a host
+        uint8 tensor of ``shape``, zero-padded past ``len(rows)``. Returns
+        (tensor, copies): the caller appends the event of each copy it
+        queues from the tensor."""
+        n = len(rows)
+        if not self._pinned:
+            host, copies = torch.zeros(shape, dtype=torch.uint8), []
+        else:
+            slots = self._slots.setdefault(tuple(shape), [None, None])
+            self._sel ^= 1
+            if slots[self._sel] is None:
+                slots[self._sel] = (torch.zeros(shape, dtype=torch.uint8,
+                                                pin_memory=True), [])
+            host, copies = slots[self._sel]
+            for event in copies:
+                event.synchronize()     # its previous H2D has finished
+            copies.clear()
+        dst = host.numpy()
+        if isinstance(rows, np.ndarray):
+            dst[:n] = rows
+        else:
+            for i, row in enumerate(rows):
+                dst[i] = row
+        dst[n:] = 0
+        return host, copies
+
+
+def recorded(stream):
+    """A CUDA event recorded on ``stream`` now."""
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
 def pack_outputs(boxes, scores, classes, valid, zones_hit=None):
     """Detections (+ zone hits) -> one f32 [B, N+1, 7] tensor."""
     if zones_hit is None:
@@ -155,6 +214,18 @@ def pack_outputs(boxes, scores, classes, valid, zones_hit=None):
                        dtype=torch.float32, device=body.device)
     tail[:, 0, 0] = valid.float()
     return torch.cat([body, tail], dim=1)
+
+
+def _step(detector, x, table_store, row_idx):
+    """Detect on the device batch ``x``, then with ``row_idx`` the camera
+    filters from ``table_store``'s tables, then pack: one packed tensor."""
+    out = detector.detect_batch(x)
+    if row_idx is None:
+        return pack_outputs(out.boxes, out.scores, out.classes, out.valid)
+    scores, classes, zones_hit, valid = apply_filters_device_indexed(
+        out.boxes, out.scores, out.classes, *table_store.tables,
+        torch.from_numpy(row_idx).to(x.device))
+    return pack_outputs(out.boxes, scores, classes, valid, zones_hit)
 
 
 class TorchDetectorBackend(DetectorBackend):
@@ -189,10 +260,7 @@ class TorchDetectorBackend(DetectorBackend):
         self._cuda = self._device.type == 'cuda'
         self._stream = torch.cuda.Stream(self._device) if self._cuda \
             else None
-        # two pinned staging buffers per batch shape, used in turn; each
-        # remembers the event of its last H2D copy
-        self._staging = {}
-        self._staging_sel = 0
+        self._staging = PinnedStaging(self._cuda)
 
     def warmup(self, hw=None, batch=1):
         """Run the step once at the bucket live batches will use (on the
@@ -203,28 +271,6 @@ class TorchDetectorBackend(DetectorBackend):
         if self._table_store is not None:
             senders = [self._table_store.names[0]] * b
         self.detect_batch(np.zeros((b, h, w, 3), np.uint8), senders=senders)
-
-    def _stage(self, images_u8, b):
-        """Copy the batch into pinned host memory, zero-padded to ``b``."""
-        n = images_u8.shape[0]
-        key = (b,) + images_u8.shape[1:]
-        if not self._cuda:
-            batch = torch.zeros(key, dtype=torch.uint8)
-            batch[:n] = torch.from_numpy(images_u8)
-            return batch, None
-        buffers = self._staging.setdefault(key, [None, None])
-        self._staging_sel ^= 1
-        slot = buffers[self._staging_sel]
-        if slot is None:
-            slot = buffers[self._staging_sel] = [
-                torch.zeros(key, dtype=torch.uint8, pin_memory=True), None]
-        host, copied = slot
-        if copied is not None:
-            copied.synchronize()        # its previous H2D has finished
-        host[:n] = torch.from_numpy(images_u8)
-        host[n:] = 0
-        slot[1] = torch.cuda.Event()
-        return host, slot[1]
 
     def dispatch(self, images_u8, senders=None):
         """Queue H2D + detect + filters + pack without waiting for the
@@ -237,29 +283,17 @@ class TorchDetectorBackend(DetectorBackend):
             row_idx = self._table_store.rows(senders, b)
         with self._lock:
             start = perf_counter()
-            host, copied = self._stage(images_u8, b)
+            host, copies = self._staging.fill(images_u8,
+                                              (b,) + images_u8.shape[1:])
             stream = torch.cuda.stream(self._stream) if self._cuda \
                 else contextlib.nullcontext()
             with stream, torch.inference_mode():
                 x = host.to(self._device, non_blocking=True)
-                if copied is not None:
-                    copied.record(self._stream)
-                out = self._detector.detect_batch(x)
-                if row_idx is not None:
-                    idx = torch.from_numpy(row_idx).to(self._device)
-                    scores, classes, zones_hit, valid = \
-                        apply_filters_device_indexed(
-                            out.boxes, out.scores, out.classes,
-                            *self._table_store.tables, idx)
-                    packed = pack_outputs(out.boxes, scores, classes, valid,
-                                          zones_hit)
-                else:
-                    packed = pack_outputs(out.boxes, out.scores, out.classes,
-                                          out.valid)
-                done = None
                 if self._cuda:
-                    done = torch.cuda.Event()
-                    done.record(self._stream)
+                    copies.append(recorded(self._stream))
+                packed = _step(self._detector, x, self._table_store,
+                               row_idx)
+                done = recorded(self._stream) if self._cuda else None
         return (packed, done, row_idx is not None, n, start, senders)
 
     def resolve(self, handle):
@@ -267,16 +301,101 @@ class TorchDetectorBackend(DetectorBackend):
         packed, done, with_zones, n, start, senders = handle
         if done is not None:
             done.synchronize()
-        arr = packed.cpu().numpy()
-        device_ms = (perf_counter() - start) * 1000.0
-        boxes, scores, classes, valid, zones_hit = _unpack_outputs(
-            arr, n, with_zones, MAX_ZONES)
-        if zones_hit is not None:
-            if senders is not None and self._zone_refiners:
-                _refine_zones(self._zone_refiners, senders, boxes, scores,
-                              classes, valid, zones_hit)
-            return boxes, scores, classes, valid, device_ms, zones_hit
-        return boxes, scores, classes, valid, device_ms
+        return _finish(packed.cpu().numpy(), start, n, with_zones, senders,
+                       self._zone_refiners)
+
+    def detect_batch(self, images_u8, senders=None):
+        return self.resolve(self.dispatch(images_u8, senders=senders))
+
+
+class FleetBackend(DetectorBackend):
+    """Detection over a fleet (counterpart of FleetBackend in
+    watsor_tpu/detection/backend.py:283-412): one step whose batch spans
+    every device of the mesh. The batch pads up to a multiple of the
+    data-axis size so each shard is equal; each shard runs detect, the
+    device filters (with its own device's copy of the camera tables) and
+    packing on its own stream, and ``resolve`` makes one D2H copy a
+    shard."""
+
+    def __init__(self, fleet, max_batch=64, camera_tables=None,
+                 zone_refiners=None, min_batch=None):
+        self._fleet = fleet
+        self._max_batch = max_batch
+        self._lock = threading.Lock()
+        mesh = fleet.mesh
+        self._devices = mesh.devices
+        self._data_size = mesh.shape['data']
+        if min_batch is None:
+            min_batch = _min_bucket_env()
+        self._min_bucket = min(_bucket(max(int(min_batch), 1)),
+                               _bucket(max_batch))
+        self.device_name = '{} MESH {{data: {}}}'.format(
+            self._devices[0].type.upper(), self._data_size)
+        size = fleet.config.input_size
+        self.input_hw = (size, size)
+        self._table_stores = None
+        if camera_tables:
+            self._table_stores = {
+                d: _FilterTableStore(camera_tables, d)
+                for d in dict.fromkeys(self._devices)}
+        self._zone_refiners = zone_refiners or {}
+        self._cuda = any(d.type == 'cuda' for d in self._devices)
+        self._staging = PinnedStaging(self._cuda)
+
+    def _target(self, n):
+        """The padded batch: the bucket of ``n``, at least the data size and
+        the floor bucket, rounded up to a multiple of the data size."""
+        target = max(_bucket(min(n, self._max_batch)), self._data_size,
+                     self._min_bucket)
+        return -(-target // self._data_size) * self._data_size
+
+    def warmup(self, hw=None, batch=None):
+        """Run the step once at the batch live traffic will use; with camera
+        tables, the filtered step, which every live batch takes."""
+        h, w = hw if hw is not None else self.input_hw
+        n = self._target(batch or self._data_size)
+        senders = None
+        if self._table_stores is not None:
+            senders = [next(iter(self._table_stores.values())).names[0]] * n
+        self.detect_batch(np.zeros((n, h, w, 3), np.uint8), senders=senders)
+
+    def dispatch(self, images_u8, senders=None):
+        """Queue every shard's H2D + detect + filters + pack without
+        waiting for the devices; returns a handle for :meth:`resolve`."""
+        n = images_u8.shape[0]
+        target = self._target(n)
+        row_idx = None
+        if self._table_stores is not None and senders is not None:
+            row_idx = next(iter(self._table_stores.values())).rows(senders,
+                                                                   target)
+        with self._lock:
+            start = perf_counter()
+            host, copies = self._staging.fill(
+                images_u8, (target,) + images_u8.shape[1:])
+            rows = self._fleet.shard_batch(row_idx) if row_idx is not None \
+                else None
+
+            def step(i, x):
+                if rows is None:
+                    return _step(self._fleet.replicas[i], x, None, None)
+                return _step(self._fleet.replicas[i], x,
+                             self._table_stores[self._devices[i]], rows[i])
+            outs = self._fleet.shard_steps(host, step, copies)
+        packed = [out for out, _ in outs]
+        done = [event for _, event in outs]
+        return (packed, done, row_idx is not None, n, start, senders)
+
+    def resolve(self, handle):
+        """Wait for every shard; one D2H copy each, concatenated in mesh
+        order; returns the detect_batch tuple."""
+        packed, done, with_zones, n, start, senders = handle
+        arrays = []
+        for shard, event in zip(packed, done):
+            if event is not None:
+                event.synchronize()
+            arrays.append(shard.cpu().numpy())
+        return _finish(np.concatenate(arrays, axis=0), start, n, with_zones,
+                       senders, self._zone_refiners)
 
     def detect_batch(self, images_u8, senders=None):
         return self.resolve(self.dispatch(images_u8, senders=senders))

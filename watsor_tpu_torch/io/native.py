@@ -1,4 +1,4 @@
-# Copy of watsor_tpu/io/native.py: imports and paths adapted.
+# Copy of watsor_tpu/io/native.py: paths adapted, a failed load kept.
 """ctypes bindings for the native video I/O runtime (libwatsor_io.so).
 
 Builds the shared library on first use (``make`` in watsor_tpu/native/)
@@ -25,6 +25,7 @@ _NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, 'native')
 _LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, 'libwatsor_io.so'))
 
 _lib = None
+_lib_error = None        # the NativeUnavailable of a failed load, kept
 _lib_lock = threading.Lock()
 
 
@@ -46,16 +47,24 @@ def _build():
 def load():
     """Load (building if needed) the native library; raises
     NativeUnavailable when the toolchain or FFmpeg libs are missing."""
-    global _lib
+    global _lib, _lib_error
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            _build()
+        if _lib_error is not None:
+            # a machine without the toolchain or libav: every JPEG of every
+            # MJPEG viewer would otherwise run make again under this lock
+            raise _lib_error
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError as e:
-            raise NativeUnavailable(str(e))
+            if not os.path.exists(_LIB_PATH):
+                _build()
+            try:
+                lib = ctypes.CDLL(_LIB_PATH)
+            except OSError as e:
+                raise NativeUnavailable(str(e))
+        except NativeUnavailable as e:
+            _lib_error = e
+            raise
 
         lib.wt_decoder_open.restype = ctypes.c_void_p
         lib.wt_decoder_open.argtypes = [

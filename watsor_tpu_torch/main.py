@@ -15,8 +15,12 @@ in the config or ``--model``). Knobs honoured as in the JAX package:
 ssd_mobilenet_v2 only), ``WATSOR_QUANTIZE=int8`` (the ``ssd_`` models) or
 ``int8_full`` (plain ssd_mobilenet_v2 only; with ``WATSOR_CALIB_FILE`` and
 ``WATSOR_INT8_POINTWISE=conv|dot|pallas``), ``WATSOR_FUSED_HEADS=1``
-(EfficientDet), ``WATSOR_DEVICE_FILTERS=0``, ``WATSOR_DEVICE_POOL``. Knobs
-whose paths are not ported yet raise.
+(EfficientDet), ``WATSOR_DEVICE_FILTERS=0``, ``WATSOR_DEVICE_POOL``,
+``WATSOR_FLEET=1`` (one detector, ``detector-fleet``, whose batch of up to
+64 frames is split over every device of the pool: parallel/) and
+``WATSOR_DEVICE_RENDER=0|1`` (box borders drawn on the device for every
+camera without a zone mask, batched across cameras: output/device_render.py;
+on by default under the fleet, off otherwise).
 """
 
 import argparse
@@ -26,6 +30,7 @@ import json
 import logging
 import os
 import signal
+import socket
 import threading
 from collections import namedtuple
 from queue import Queue
@@ -182,6 +187,8 @@ class TorchApplication:
         self._jpeg_caches = {}
         self._camera_tables = {}
         self._zone_refiners = {}
+        self._mesh = None
+        self._device_renderer = None
         # injectable for tests: device -> DetectorBackend (the reference's
         # analog is swapping in the analytic shape detector, SURVEY.md §4)
         self._backend_factory = backend_factory
@@ -233,13 +240,33 @@ class TorchApplication:
         if zone_mask is not None:
             return [CopyHeaderEffect(), CopyImageEffect(),
                     BlendEffect(zone_mask), DrawEffectWithContours(zone_mask)]
-        # the JAX package defaults device render on under WATSOR_FLEET=1
-        render = os.environ.get('WATSOR_DEVICE_RENDER') or \
-            ('1' if os.environ.get('WATSOR_FLEET') == '1' else '0')
-        if render == '1':
-            raise SystemExit('device overlay render (WATSOR_DEVICE_RENDER, '
-                             'WATSOR_FLEET) ' + _NOT_PORTED)
+        # device render: on by default under the fleet (many cameras, where
+        # drawing each frame with cv2 saturates the host's cores), host
+        # drawing otherwise; WATSOR_DEVICE_RENDER=0|1 overrides either way
+        device_render = os.environ.get('WATSOR_DEVICE_RENDER')
+        if device_render is None:
+            device_render = '1' if self._fleet else '0'
+        if device_render == '1':
+            from watsor_tpu_torch.output.device_render import \
+                DeviceDrawEffect
+            return [CopyHeaderEffect(), CopyImageEffect(),
+                    DeviceDrawEffect(self._renderer())]
         return [CopyHeaderEffect(), CopyImageEffect(), DrawEffect()]
+
+    @property
+    def _fleet(self):
+        return os.environ.get('WATSOR_FLEET') == '1'
+
+    def _renderer(self):
+        """The one DeviceRenderer every camera shares: on the mesh's first
+        device under the fleet, else on the device pool's first."""
+        if self._device_renderer is None:
+            from watsor_tpu_torch.detection import resolve_device_pool
+            from watsor_tpu_torch.output.device_render import DeviceRenderer
+            device = self._mesh.devices[0] if self._mesh is not None \
+                else resolve_device_pool()[0]
+            self._device_renderer = DeviceRenderer(device=device)
+        return self._device_renderer
 
     def _create_decoder(self, camera_name, camera_config, frame_queue,
                         buffer_in, rate_limiter):
@@ -378,9 +405,6 @@ class TorchApplication:
     def _detector_factory(self, config):
         """device -> Detector, for the configured model and knobs."""
         from watsor_tpu_torch.models.zoo import model_config
-        if os.environ.get('WATSOR_FLEET') not in (None, '', '0'):
-            raise SystemExit('WATSOR_FLEET={} {}'.format(
-                os.environ['WATSOR_FLEET'], _NOT_PORTED))
         model_name, watched, nms_mode = detector_spec_from_config(
             config, self._args)
         dtype = None
@@ -489,6 +513,9 @@ class TorchApplication:
         backend_factory = self._backend_factory
         if backend_factory is None:
             make_detector = self._detector_factory(config)
+            if self._fleet:
+                from watsor_tpu_torch.parallel import make_mesh
+                self._mesh = make_mesh()
 
         for camera in config['cameras']:
             camera_name = next(iter(camera))
@@ -496,16 +523,31 @@ class TorchApplication:
                 camera_name, camera[camera_name], queues[camera_name],
                 mqtt_config))
 
+        buffers = {c.name: c.buffer_in for c in self._cameras}
         if backend_factory is None:
             tables = self._camera_tables if self._device_filters else None
             refiners = self._zone_refiners if self._device_filters else None
+            if self._mesh is not None:
+                # one step whose batch spans every device of the mesh, in
+                # place of one detector task per device
+                from watsor_tpu_torch.detection import FleetBackend
+                from watsor_tpu_torch.detection.detector import \
+                    ObjectDetector
+                from watsor_tpu_torch.parallel import FleetDetector
+                fleet = FleetDetector(self._mesh,
+                                      make_detector(self._mesh.devices[0]))
+                self._detectors = [ObjectDetector(
+                    'detector-fleet', next(iter(queues.values())), buffers,
+                    FleetBackend(fleet, camera_tables=tables,
+                                 zone_refiners=refiners),
+                    max_batch=64)]
+                return
 
             def backend_factory(device):
                 return TorchDetectorBackend(make_detector(device), device,
                                             camera_tables=tables,
                                             zone_refiners=refiners)
 
-        buffers = {c.name: c.buffer_in for c in self._cameras}
         self._detectors = create_object_detectors(queues, buffers,
                                                   backend_factory)
 
@@ -733,10 +775,8 @@ class TorchApplication:
         return response
 
     def _http_serve(self):
-        from werkzeug.serving import make_server
         port = self._http_config.get('port', 8080)
-        self._http_server = make_server('0.0.0.0', port, self._wsgi_app,
-                                        threaded=True)
+        self._http_server = make_http_server(port, self._wsgi_app)
         thread = threading.Thread(name='http', daemon=True,
                                   target=self._http_server.serve_forever)
         thread.start()
@@ -805,6 +845,7 @@ class TorchApplication:
 
     def _shutdown(self):
         _LOGGER.info('Stopping...')
+        self._stop_main.set()           # ends the video streams being served
         self._watchdog.join(5)
         if self._http_server is not None:
             self._http_server.shutdown()
@@ -812,7 +853,71 @@ class TorchApplication:
             task.terminate()
         for task in self._all_tasks():
             task.join(30)
+        if self._http_server is not None:
+            left = self._http_server.close_requests()
+            if left:
+                _LOGGER.warning('HTTP request threads still running: %s',
+                                ', '.join(left))
+        if self._device_renderer is not None:
+            self._device_renderer.close()
         _LOGGER.info('Stopped')
+
+
+def make_http_server(port, app, host='0.0.0.0'):
+    """werkzeug's threaded WSGI server for ``app``, which also keeps each
+    open connection with the thread serving it, so that the application's
+    shutdown ends every request (``close_requests``) instead of leaving
+    their threads behind."""
+    from werkzeug.serving import ThreadedWSGIServer
+
+    class Server(ThreadedWSGIServer):
+        # the connections are tracked here, and server_close must not
+        # wait for their threads without a limit
+        block_on_close = False
+
+        def __init__(self, *args, **kwargs):
+            self._open = {}             # connection -> its thread, once known
+            self._open_changed = threading.Condition()
+            super().__init__(*args, **kwargs)
+
+        def process_request(self, request, client_address):
+            with self._open_changed:
+                self._open[request] = None
+            super().process_request(request, client_address)
+
+        def process_request_thread(self, request, client_address):
+            with self._open_changed:
+                self._open[request] = threading.current_thread()
+            try:
+                super().process_request_thread(request, client_address)
+            finally:
+                with self._open_changed:
+                    self._open.pop(request, None)
+                    self._open_changed.notify_all()
+
+        def _wait_closed(self, timeout):
+            with self._open_changed:
+                self._open_changed.wait_for(lambda: not self._open, timeout)
+                return dict(self._open)
+
+        def close_requests(self, grace_s=5.0):
+            """After ``shutdown()``: give the open requests ``grace_s`` to
+            end, then cut their connections (a viewer that stopped reading
+            blocks its thread in a write) and wait as long again; close the
+            listening socket. Returns the names of the request threads still
+            running."""
+            left = self._wait_closed(grace_s)
+            for request in left:
+                try:
+                    request.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass                # already closed
+            left = self._wait_closed(grace_s)
+            self.server_close()
+            return sorted(t.name if t is not None else 'starting'
+                          for t in left.values())
+
+    return Server(host, port, app)
 
 
 def main(argv=None):

@@ -438,4 +438,5 @@ def build_effdet(config: EfficientDetConfig = EfficientDetConfig(),
         cfg, anchors_dev, raw_native, normalize,
         background_offset=1 if cfg.explicit_background else 0)
     return Detector(model, cfg, variables, anchors, device, detect_batch,
-                    raw_apply)
+                    raw_apply, lambda device: build_effdet(
+                        cfg, variables, anchors=anchors, device=device))

@@ -141,4 +141,7 @@ def build_quantized_detector(config=None, variables=None, seed=0,
         cfg, anchors_dev, raw_apply,
         lambda x: normalize_images(x, dtype=cfg.dtype))
     return base._replace(variables=q_variables, detect_batch=detect_batch,
-                         raw_apply=raw_apply)
+                         raw_apply=raw_apply,
+                         rebuild=lambda device: build_quantized_detector(
+                             cfg, base.variables, anchors=base.anchors,
+                             device=device))

@@ -181,6 +181,8 @@ class Detector(NamedTuple):
     device: torch.device
     detect_batch: Any          # (images_u8 [B, H, W, 3]) -> DetectionsBatch
     raw_apply: Any             # (images_f [B, S, S, 3]) -> (box_enc, logits)
+    # (device) -> the same detector on ``device``, from these weights
+    rebuild: Any = None
 
 
 class DetectionsBatch(NamedTuple):
@@ -302,4 +304,5 @@ def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
         cfg, anchors_dev, raw_apply,
         functools.partial(normalize_images, dtype=cfg.dtype))
     return Detector(model, cfg, variables, anchors, device, detect_batch,
-                    raw_apply)
+                    raw_apply, lambda device: build_detector(
+                        cfg, variables, anchors=anchors, device=device))

@@ -168,5 +168,7 @@ def build_fused_detector(detector):
     detect_batch = make_detect_batch(
         cfg, anchors_dev, raw_apply,
         functools.partial(normalize_images, dtype=cfg.dtype))
-    return detector._replace(model=None, detect_batch=detect_batch,
-                             raw_apply=raw_apply)
+    return detector._replace(
+        model=None, detect_batch=detect_batch, raw_apply=raw_apply,
+        rebuild=lambda device: build_fused_detector(
+            detector.rebuild(device)))

@@ -322,5 +322,7 @@ def build_int8_detector(detector, calibration_images_u8, pointwise=None,
     detect_batch = make_detect_batch(
         cfg, anchors_dev, raw_apply,
         lambda x: x.float() * (2.0 / 255.0) - 1.0)
-    return detector._replace(model=None, detect_batch=detect_batch,
-                             raw_apply=raw_apply)
+    return detector._replace(
+        model=None, detect_batch=detect_batch, raw_apply=raw_apply,
+        rebuild=lambda device: build_int8_detector(
+            detector.rebuild(device), None, pointwise=mode, absmax=absmax))

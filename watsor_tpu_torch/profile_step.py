@@ -1,10 +1,10 @@
 """Step profile of the port's main path on one CUDA card.
 
-    python -m watsor_tpu_torch.profile_step [--path main|int8|nms]
+    python -m watsor_tpu_torch.profile_step [--path main|int8|nms|fleet]
                                             [--model NAME[,NAME...]]
                                             [--min-blocks 132,264]
                                             [--baseline OTHER_CHECKOUT]
-                                            [--int8-plans]
+                                            [--int8-plans] [--pool-only]
                                             [--trace step_trace.json]
 
 Drives a workload of chip_smoke.py (``watsor_tpu_torch.workload``) at
@@ -12,7 +12,8 @@ batch 8 and prints a line per measurement, then all of them as one JSON
 object on the last line. ``--path main`` (the default) profiles the fused
 walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
 (int8_full, pointwise units through the kernel) with ``nms: exact``;
-``--path nms`` only the two suppression kernels:
+``--path nms`` only the two suppression kernels; ``--path fleet`` the
+fleet and the device overlay on every visible card:
 
 - the forward of the plain bf16 model (convolutions with BatchNorm) and of
   the path's walk, as device time (CUDA-graph replay, which leaves out the
@@ -47,7 +48,17 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
   and CUDA-event time, an empty kernel launched with the same grid (the
   card's floor for a launch), and the per-phase split of a build with
   WT_PHASE_CLOCK (each block's %globaltimer and clock64 at its phase
-  boundaries).
+  boundaries);
+- fleet: the main path's detector behind FleetBackend over make_mesh()
+  (every visible card) and over two shards of the first card, at 16, 32
+  and 64 detect planes of 300x300: each shard's packed output against
+  TorchDetectorBackend's on the first card for the shard's frames (bit for
+  bit), kernel 1 and 2 launches a step, the step's wall time beside the
+  single backend's in turns single, fleet, fleet, single, and a profiler
+  window of the fleet's steps (the busy share is the union over every
+  card); then render_boxes at 16 frames of 1920x1080 (100 box slots, 30
+  valid) as device time with TF32 off and on, and its kernels in a
+  profiler window; ``--pool-only`` keeps the mesh over every card alone.
 
 ``--baseline`` takes another checkout, unpacked with ``git archive``, and
 builds its kernel of the path from its ``csrc/`` beside this one's: on the
@@ -378,6 +389,106 @@ def profile_trace(be, images, cameras, results, label, steps=10, top=12,
         print('  {:6.1%} {:5d} x {:9.2f} us  {}'.format(
             k['share'], k['calls'], k['us_per_call'], k['name']))
     return prof
+
+
+def profile_fleet(device, results, steps, pool_only=False):
+    """The fleet and the device overlay (see the module docstring); with
+    ``pool_only`` the mesh over every visible card alone."""
+    from torch.profiler import ProfilerActivity, profile
+    from watsor_tpu_torch.detection import FleetBackend
+    from watsor_tpu_torch.ops import nms_fixed_point
+    from watsor_tpu_torch.ops.overlay import (coco_color_table, pixel_index,
+                                              render_boxes)
+    from watsor_tpu_torch.parallel import FleetDetector, make_mesh
+    from watsor_tpu_torch.workload import (detect_planes,
+                                           fleet_against_single,
+                                           overlay_inputs, overlay_work)
+
+    detector = build_main_path_detector(device)
+    counters = (nms_fixed_point.fixed_point_suppress,
+                fused_block.fused_inverted_residual)
+    batches = (16, 32, 64)
+    cameras = ['cam{}'.format(i) for i in range(max(batches))]
+    tables, refiners = camera_filters(cameras, FRAME_HW)
+    planes = detect_planes(max(batches), seed=4)
+    single = TorchDetectorBackend(detector, device, camera_tables=tables,
+                                  zone_refiners=refiners)
+
+    rows = []
+    meshes = [make_mesh()]
+    if not pool_only:
+        meshes.append(make_mesh(devices=[device, device]))
+    for mesh in meshes:
+        start = time.perf_counter()
+        fleet = FleetDetector(mesh, detector)
+        build_s = time.perf_counter() - start
+        backend = FleetBackend(fleet, camera_tables=tables,
+                               zone_refiners=refiners)
+        for batch in batches:
+            row = fleet_against_single(backend, single, planes[:batch],
+                                       cameras[:batch], counters, steps)
+            row.update(mesh=backend.device_name, batch=batch,
+                       devices=[str(d) for d in mesh.devices],
+                       replicas_build_s=build_s)
+            rows.append(row)
+            print('fleet {} batch {} ({} shards of {}): bit-identical to '
+                  'TorchDetectorBackend on each shard {}, launches {}; step '
+                  'wall {} ms, TorchDetectorBackend {} ms'.format(
+                      backend.device_name, batch, row['shards'], row['shard'],
+                      row['equal'], row['launches'],
+                      ' / '.join('{:.3f}'.format(t)
+                                 for t in row['fleet_wall_ms']),
+                      ' / '.join('{:.3f}'.format(t)
+                                 for t in row['single_wall_ms'])), flush=True)
+            if not all(row['equal']):
+                raise AssertionError('fleet output differs from the single '
+                                     'backend')
+        profile_trace(backend, planes[:32], cameras[:32], results,
+                      'fleet {} batch 32'.format(backend.device_name),
+                      key='profile_{}'.format(backend.device_name))
+    results['fleet'] = rows
+    if pool_only:
+        return
+
+    frames, boxes, classes = overlay_inputs()
+    B, H, W, _ = frames.shape
+    args = [torch.from_numpy(a).to(device) for a in (frames, boxes, classes)]
+    table = coco_color_table(device)
+    index = pixel_index(H, W, device)
+    nbytes, ops = overlay_work(B, H, W, boxes.shape[1])
+    overlay = {'bound_bytes_ms': Bound().add(nbytes).ms}
+    with torch.inference_mode():
+        for mode in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = mode
+            key = 'tf32' if mode else 'f32'
+            overlay[key + '_device_ms'] = graph_ms(
+                lambda: render_boxes(*args, table, index=index), n=3, reps=5)
+            overlay[key + '_events_ms'] = events_ms(
+                lambda: render_boxes(*args, table, index=index), n=3)
+            overlay[key + '_bound_ops_ms'] = Bound().add(0, **{key: ops}).ms
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    render_boxes(*args, table, index=index)
+                torch.cuda.synchronize()
+            per_kernel = defaultdict(float)
+            for e in prof.events():
+                if e.device_type.name == 'CUDA':
+                    per_kernel[e.name[:70]] += (e.time_range.end -
+                                                e.time_range.start) / 3e3
+            overlay[key + '_kernels_ms'] = dict(sorted(
+                per_kernel.items(), key=lambda kv: -kv[1])[:8])
+            print('render_boxes [{}, {}, {}, 3] TF32 {}: {:.4f} ms on the '
+                  'device, {:.4f} ms with host launches; bound {:.4f} ms '
+                  '(bytes), {:.4f} ms (operations)'.format(
+                      B, H, W, 'on' if mode else 'off',
+                      overlay[key + '_device_ms'],
+                      overlay[key + '_events_ms'], overlay['bound_bytes_ms'],
+                      overlay[key + '_bound_ops_ms']), flush=True)
+            for name, ms in overlay[key + '_kernels_ms'].items():
+                print('  {:8.4f} ms  {}'.format(ms, name), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results['overlay'] = overlay
 
 
 def _baseline_launcher(tree):
@@ -926,10 +1037,11 @@ def profile_nms(device, results, baseline=None):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--path', choices=('main', 'int8', 'nms'),
+    parser.add_argument('--path', choices=('main', 'int8', 'nms', 'fleet'),
                         default='main',
                         help='the main path (fused walk), the int8 path, '
-                             'or the two suppression kernels alone')
+                             'the two suppression kernels alone, or the '
+                             'fleet and the device overlay')
     parser.add_argument('--model', default=None,
                         help='instead of a path, profile these families of '
                              'the zoo (comma list; "all" for every family '
@@ -945,6 +1057,9 @@ def main(argv=None):
     parser.add_argument('--int8-plans', action='store_true',
                         help='int8 path: also time every launch plan of '
                              'the int8 kernel at each of its shapes')
+    parser.add_argument('--pool-only', action='store_true',
+                        help='fleet path: only the mesh over every visible '
+                             'card (for a run on several cards)')
     parser.add_argument('--steps', type=int, default=30,
                         help='backend steps timed per turn')
     parser.add_argument('--trace', default=None,
@@ -973,8 +1088,12 @@ def main(argv=None):
             torch.cuda.empty_cache()
         print(json.dumps(results), flush=True)
         return
-    if args.path == 'nms':
-        profile_nms(device, results, args.baseline)
+    if args.path in ('nms', 'fleet'):
+        if args.path == 'nms':
+            profile_nms(device, results, args.baseline)
+        else:
+            results['cards'] = torch.cuda.device_count()
+            profile_fleet(device, results, args.steps, args.pool_only)
         print(json.dumps(results), flush=True)
         return
     prof = profile_models(device, results, args.steps, args.path,

@@ -15,9 +15,18 @@ demo zone mask (config/porch_mask.png). Two paths:
 And the other families of the zoo (FAMILIES), each at full width with
 random weights from a seed, bf16, ``nms: fused_exact``, over all 90
 classes, fed BATCH frames of 1920x1080.
+
+The fleet (WATSOR_FLEET=1): the main path's detector behind a
+FleetBackend, fed FLEET_BATCHES of detect planes at the model's 300x300
+(the service's decoders write planes at the model's size), and the
+device overlay (WATSOR_DEVICE_RENDER) at OVERLAY_BATCH frames of
+1920x1080 with 100 box slots a frame (``overlay_inputs``).
 """
 
+import contextlib
 import os
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -41,10 +50,15 @@ FAMILIES = ('ssd_mobilenet_v1', 'ssdlite_mobilenet_v2', 'ssd_inception_v2',
 FUSED_SHAPES = [(75, 24, 144, 24)] + [(38, 32, 192, 32)] * 2 + \
     [(19, 64, 384, 64)] * 3 + [(19, 64, 384, 96)] + [(19, 96, 576, 96)] * 2 + \
     [(10, 160, 960, 160)] * 2 + [(10, 160, 960, 320)]
+FLEET_BATCHES = (16, 32)
+OVERLAY_BATCH = 16
+OVERLAY_VALID = 30                    # valid boxes of the 100 slots a frame
+
 # the card's peaks for a kernel's bound (one H100 SXM at 700 W: NVIDIA's
 # data sheet, dense): device memory bytes/s and operations/s by type
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {'bf16': 989e12, 'f32': 67e12, 'int8': 1979e12}
+PEAK_OPS_S = {'bf16': 989e12, 'f32': 67e12, 'tf32': 495e12,
+              'int8': 1979e12}
 
 
 class Bound:
@@ -245,3 +259,89 @@ def cudnn_block(x, we, be, wdw, bdw, wp, bp, residual):
         p = F.conv2d(d, w3, b3)
         return p + xc if residual else p
     return run
+
+
+def detect_planes(n, size=300, seed=0):
+    """``n`` seeded uint8 detect planes of ``size`` x ``size``."""
+    return np.random.default_rng(seed).integers(0, 256, (n, size, size, 3),
+                                                np.uint8)
+
+
+def overlay_inputs(batch=OVERLAY_BATCH, frame_hw=FRAME_HW, slots=100,
+                   valid=OVERLAY_VALID, seed=0):
+    """Frames, boxes and classes for the device overlay, as numpy: ``valid``
+    seeded boxes a frame among ``slots`` (the rest class 0), overlapping,
+    some running past the frame's edges."""
+    rng = np.random.default_rng(seed)
+    h, w = frame_hw
+    frames = rng.integers(0, 256, (batch, h, w, 3), np.uint8)
+    yx = rng.uniform(-0.05, 0.95, (batch, slots, 2)) * (h, w)
+    hw = rng.uniform(0.02, 0.4, (batch, slots, 2)) * (h, w)
+    boxes = np.concatenate([yx, yx + hw], -1).astype(np.float32)
+    classes = np.zeros((batch, slots), np.int32)
+    for b in range(batch):
+        rows = rng.choice(slots, valid, replace=False)
+        classes[b, rows] = rng.integers(1, 91, valid)
+    return frames, boxes, classes
+
+
+def overlay_work(batch, h, w, slots):
+    """(bytes, f32 operations) of render_boxes: the frames read and written
+    once; four [H, 2N] x [2N, W] products a frame (three colours and the
+    count), two operations a multiply-add."""
+    return 2 * batch * h * w * 3, 2 * 4 * batch * h * w * 2 * slots
+
+
+def packed_shards(backend, frames, senders):
+    """One step of ``backend`` (a TorchDetectorBackend or a FleetBackend) on
+    ``frames`` from cameras ``senders``: its packed output, a CPU tensor a
+    shard."""
+    handle = backend.dispatch(frames, senders=senders)
+    backend.resolve(handle)
+    shards = handle[0] if isinstance(handle[0], list) else [handle[0]]
+    return [p.cpu() for p in shards]
+
+
+def step_wall_ms(backend, frames, senders, reps):
+    """Median host wall time of ``backend.detect_batch`` (which waits for
+    the step's result) over ``reps`` steps, after three untimed ones."""
+    times = []
+    for rep in range(reps + 3):
+        start = time.perf_counter()
+        backend.detect_batch(frames, senders=senders)
+        if rep >= 3:
+            times.append(1e3 * (time.perf_counter() - start))
+    return statistics.median(times)
+
+
+def fleet_against_single(fleet, single, frames, senders, counters, reps,
+                         around=contextlib.nullcontext):
+    """FleetBackend ``fleet`` against TorchDetectorBackend ``single``, both
+    warmed at this batch. One fleet step inside ``around()``, with the
+    ``launches`` of each wrapper in ``counters`` set to 0 just before and
+    read just after; each shard's packed output against the single
+    backend's on that shard's frames alone, bit for bit; then each
+    backend's step wall time in turns single, fleet, fleet, single.
+    Returns a dict: shards, shard (its batch), launches, equal (a bool a
+    shard), kept (detections), fleet_wall_ms and single_wall_ms (two
+    each)."""
+    batch = len(frames)
+    fleet.warmup(batch=batch)
+    single.warmup(batch=batch)
+    with around():
+        for counter in counters:
+            counter.launches = 0
+        got = packed_shards(fleet, frames, senders)
+        launches = {c.__name__: c.launches for c in counters}
+    size = batch // len(got)
+    equal = [torch.equal(shard, packed_shards(
+        single, frames[i * size:(i + 1) * size],
+        senders[i * size:(i + 1) * size])[0]) for i, shard in enumerate(got)]
+    walls = {'fleet': [], 'single': []}
+    for label in ('single', 'fleet', 'fleet', 'single'):
+        walls[label].append(step_wall_ms(
+            fleet if label == 'fleet' else single, frames, senders, reps))
+    return {'shards': len(got), 'shard': size, 'launches': launches,
+            'equal': equal, 'kept': sum(int(g[:, -1, 0].sum()) for g in got),
+            'fleet_wall_ms': walls['fleet'],
+            'single_wall_ms': walls['single']}
