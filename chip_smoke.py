@@ -59,6 +59,24 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
       ``detector-fleet`` serves, viewers on every camera's MJPEG stream
       make its DeviceRenderer draw at least one batch, with no failure;
 
+6. training: ssd_mobilenet_v2 at 300x300 (90 classes, bf16 activations,
+   f32 parameters, AdamW) takes 20 steps on one batch of 16 images painted
+   and labelled by testing/prepare.py, each loss finite and the last under
+   0.9 times the first, with each step's wall and CUDA-event time, images/s
+   and peak memory; then one step (TF32 off, SGD at learning rate 1, 4
+   images) on the card against the same step on the CPU: in f32 the loss
+   within 1e-4 relative and the new BatchNorm statistics within 1e-4 of
+   each leaf's largest magnitude (the update's errors printed: f32
+   gradients are ill-conditioned here), in f64 also the statistics within
+   1e-4 relative and the update within 1e-3 of each leaf's largest
+   magnitude; and the anchor matching's duplicate claims on the card;
+   efficientdet_lite0 at 320x320 takes 10 steps the same way; last the
+   shape model trains on the card (150 steps at batch 16, precise
+   BN), is saved as ``.msgpack``, read back by the zoo's ``load_weights``
+   into ``build_detector(make_shape_config())`` and finds a black square
+   under ``fused_exact``, its fixed_point_suppress launches held bit for
+   bit against the plain version;
+
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
 of JAX, and nothing of the JAX package ``watsor_tpu``, was imported on
@@ -111,6 +129,19 @@ INT8_CALLS = 38
 FUSED_CALLS = 12
 # synthetic cameras of the fleet application (phase 5c)
 FLEET_CAMERAS = 16
+# phase 6: train steps on one batch, and the share of the first loss the
+# last must fall under (tests/test_train.py's bar)
+TRAIN_STEPS = {'ssd_mobilenet_v2': 20, 'efficientdet_lite0': 10}
+TRAIN_FALL = 0.9
+# a train step on the card against the CPU's (TF32 off): the loss and
+# the new BatchNorm statistics relative, the update (SGD at learning rate
+# 1: the gradient) against each leaf's largest magnitude (phase6a)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_STATS_RTOL = 1e-4
+# the shape model's training run (tests/test_shape_model.py)
+SHAPE_STEPS = 150
+SHAPE_BATCH = 16
 
 
 def log(*args):
@@ -1060,6 +1091,273 @@ def fleet_app_check(app, url, n_cameras, watch_s=20.0):
                                                renderer.failures))
 
 
+def phase_train(device, name, label):
+    """phase6a/6b: the zoo's ``name`` at full width (bf16 activations, f32
+    parameters, make_optimizer()) trained TRAIN_STEPS[name] steps on one
+    batch of TRAIN_BATCH images painted at its input size: every loss
+    finite and the last under TRAIN_FALL times the first."""
+    import torch
+    from watsor_tpu_torch.workload import (TRAIN_BATCH, build_train_state,
+                                           timed_train_steps, train_batch)
+    start = time.perf_counter()
+    config, state, step = build_train_state(device, name)
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in train_batch(config.input_size).items()}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    torch.cuda.reset_peak_memory_stats(device)
+    rows = timed_train_steps(state, step, batch, TRAIN_STEPS[name])
+    peak = torch.cuda.max_memory_allocated(device)
+    for i, row in enumerate(rows):
+        log('{} train {} step {}: loss {:.4f}, wall {:.3f} ms, CUDA-event '
+            '{:.3f} ms, {:.1f} images/s'.format(
+                label, name, i + 1, row['loss'], row['wall_ms'],
+                row['event_ms'], TRAIN_BATCH / row['wall_ms'] * 1e3))
+    losses = [row['loss'] for row in rows]
+    wall = statistics.median(row['wall_ms'] for row in rows[1:])
+    log('{} train {} {}x{} {} batch {}: build {:.2f} s, loss {:.4f} -> '
+        '{:.4f} in {} steps, step wall median {:.3f} ms (after the first, '
+        '{:.3f} ms), {:.1f} images/s, max_memory_allocated {:.3f} GB'.format(
+            label, name, config.input_size, config.input_size, config.dtype,
+            TRAIN_BATCH, build_s, losses[0], losses[-1], len(losses), wall,
+            rows[0]['wall_ms'], TRAIN_BATCH / wall * 1e3, peak / 1e9))
+    if not all(np.isfinite(losses)) or not losses[-1] < \
+            TRAIN_FALL * losses[0]:
+        raise AssertionError('{}: losses {} do not fall under {} of the '
+                             'first'.format(name, losses, TRAIN_FALL))
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _flat(value, prefix + (key,))
+    else:
+        yield '/'.join(prefix), np.asarray(tree, np.float64)
+
+
+def _check_variables():
+    """ssd_mobilenet_v2's seeded weights with every BatchNorm's scale,
+    bias and statistics redrawn from a numpy seed, as the CPU tests redraw
+    them: under flax's constant init (bias 0) a BatchNorm whose input is a
+    linear map of another's output has a batch mean of 0 in exact
+    arithmetic, which each device rounds to noise of its own."""
+    import torch
+    from watsor_tpu_torch.models.train import _model_for
+    from watsor_tpu_torch.models.weights import (export_variables,
+                                                 init_weights)
+    from watsor_tpu_torch.models.zoo import model_config
+    model = init_weights(_model_for(model_config('ssd_mobilenet_v2')),
+                         torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+
+    def redraw(node, key=None):
+        if isinstance(node, dict):
+            return {k: redraw(v, k) for k, v in sorted(node.items())}
+        if key in ('scale', 'var'):
+            return rng.uniform(0.5, 1.5, node.shape).astype(np.float32)
+        if key in ('bias', 'mean'):
+            return rng.normal(0.0, 0.1, node.shape).astype(np.float32)
+        return node
+
+    return redraw(export_variables(model))
+
+
+def _train_check_step(device, dtype, batch, variables):
+    """One step of ssd_mobilenet_v2 at full width in ``dtype`` on
+    ``device`` (TF32 off) with SGD at learning rate 1, from ``variables``:
+    (flat variables before, after, metrics, seconds)."""
+    import functools
+    import torch
+    from watsor_tpu_torch.models.train import (_model_for, init_train_state,
+                                               make_train_step)
+    from watsor_tpu_torch.models.weights import export_variables
+    from watsor_tpu_torch.models.zoo import model_config
+    config = model_config('ssd_mobilenet_v2')._replace(dtype=dtype)
+    state = init_train_state(config, variables,
+                             functools.partial(torch.optim.SGD, lr=1.0),
+                             model=_model_for(config).to(dtype),
+                             device=device)
+    before = dict(_flat(export_variables(state.model, np.float64)))
+    start = time.perf_counter()
+    with tf32(False):
+        metrics = {k: float(v) for k, v in
+                   make_train_step(config)(state, batch).items()}
+    seconds = time.perf_counter() - start
+    return before, dict(_flat(export_variables(state.model, np.float64))), \
+        metrics, seconds
+
+
+def _compare_steps(card, cpu):
+    """(loss relative error; statistics: worst relative error where the
+    CPU's value is not 0, the card's largest magnitude where it is, and
+    the worst error against its leaf's largest magnitude, each as a share
+    of it; the update: [(error against the leaf's largest magnitude, the
+    leaf's largest against the tree's on the CPU, and on the card, leaf),
+    ...] worst first)."""
+    loss_err = abs(card[2]['loss'] - cpu[2]['loss']) / abs(cpu[2]['loss'])
+    stats_rel, stats_zero, stats_leaf = 0.0, 0.0, 0.0
+    for key, want in cpu[1].items():
+        if key.startswith('batch_stats/'):
+            got, nonzero = card[1][key], want != 0
+            scale = np.abs(want).max()
+            if nonzero.any():
+                stats_rel = max(stats_rel, float((np.abs(
+                    got - want)[nonzero] / np.abs(want[nonzero])).max()))
+            if (~nonzero).any():
+                stats_zero = max(stats_zero, float(
+                    np.abs(got[~nonzero]).max() / scale))
+            stats_leaf = max(stats_leaf,
+                             float(np.abs(got - want).max() / scale))
+    grads = {k: (card[0][k] - card[1][k], cpu[0][k] - cpu[1][k])
+             for k in cpu[0] if k.startswith('params/')}
+    tree_max = max(np.abs(w).max() for _, w in grads.values())
+    grad_err = sorted(((np.abs(g - w).max() / max(np.abs(w).max(), 1e-300),
+                        np.abs(w).max() / tree_max,
+                        np.abs(g).max() / tree_max, k)
+                       for k, (g, w) in grads.items()), reverse=True)
+    return loss_err, (stats_rel, stats_zero, stats_leaf), grad_err
+
+
+def phase_train_f32(device):
+    """phase6a: one step of ssd_mobilenet_v2 at full width with SGD at
+    learning rate 1 (the update is the gradient), TF32 off, on the card
+    against the same step of the port on the CPU, from the same seeded
+    weights (``_check_variables``) and 4 painted images: in f32 the loss
+    within TRAIN_LOSS_RTOL and the new BatchNorm statistics within
+    TRAIN_STATS_RTOL of each leaf's largest magnitude (the update is
+    printed: the gradients of train-mode BatchNorm networks are
+    ill-conditioned in f32, and leaves whose gradient cancels differ by
+    their own size; elementwise, a mean near 0 has no relative error of
+    its own); in f64 the loss, the statistics within TRAIN_STATS_RTOL
+    elementwise and of each leaf's largest, and the update within
+    TRAIN_GRAD_TOL of each leaf's largest magnitude, where a leaf whose
+    f64 gradient is under 1e-9 of the tree's largest on the CPU (zero in
+    exact arithmetic: a BatchNorm bias whose output reaches the loss only
+    through train-mode BatchNorms) is held under the same 1e-9 on the
+    card. Then the anchor matching's duplicate
+    claims resolved on the card as on the CPU."""
+    import torch
+    from watsor_tpu_torch.models.train import _match_anchors
+    from watsor_tpu_torch.workload import train_batch
+    batch = train_batch(300, n=4)
+    variables = _check_variables()
+    failures = []
+    for dtype, exact in ((torch.float32, False), (torch.float64, True)):
+        card = _train_check_step(device, dtype, batch, variables)
+        cpu = _train_check_step(torch.device('cpu'), dtype, batch, variables)
+        loss_err, stats, grad_err = _compare_steps(card, cpu)
+        stats_rel, stats_zero, stats_leaf = stats
+        zero = [row for row in grad_err if row[1] < 1e-9]
+        live = [row for row in grad_err if row[1] >= 1e-9]
+        zero_card = max([card_share for _, _, card_share, _ in zero] + [0.0])
+        over = sum(e > TRAIN_GRAD_TOL for e, _, _, _ in live)
+        log('phase6a {} train step (TF32 off, SGD lr 1, 4 images) card '
+            'against CPU: loss {:.9g} / {:.9g}, relative {:.3g} (bar {}); '
+            'new BatchNorm statistics relative max {:.3g} (bar {}), where '
+            "the CPU's are 0 the card's under {:.3g} of their leaf's "
+            "largest, against each leaf's largest {:.3g}; update against "
+            "each leaf's largest magnitude: {} of "
+            '{} leaves over {} (worst {}); {} leaves under 1e-9 of the '
+            "tree's largest on the CPU, the card's under {:.3g} of it; card "
+            '{:.2f} s, CPU {:.2f} s'.format(
+                str(dtype).split('.')[1], card[2]['loss'], cpu[2]['loss'],
+                loss_err, TRAIN_LOSS_RTOL, stats_rel, TRAIN_STATS_RTOL,
+                stats_zero, stats_leaf, over, len(live), TRAIN_GRAD_TOL,
+                ['{} {:.3g} (leaf max {:.3g} of the tree max)'.format(k, e, m)
+                 for e, m, _, k in live[:4]], len(zero), zero_card, card[3],
+                cpu[3]))
+        if loss_err > TRAIN_LOSS_RTOL:
+            failures.append('{}: loss {:.3g}'.format(dtype, loss_err))
+        if stats_leaf > TRAIN_STATS_RTOL or exact and (
+                stats_rel > TRAIN_STATS_RTOL or
+                stats_zero > TRAIN_STATS_RTOL):
+            failures.append('{}: statistics {:.3g} / {:.3g} / {:.3g}'.format(
+                dtype, stats_rel, stats_zero, stats_leaf))
+        if exact and (over or zero_card >= 1e-9):
+            failures.append('{}: {} leaves over {}, zero leaves {:.3g}'
+                            .format(dtype, over, TRAIN_GRAD_TOL, zero_card))
+    # duplicate claims: 32 ground truths whose best anchor is anchor 7, the
+    # last one invalid; the highest valid index (30) wins on every device
+    anchors = torch.rand(1917, 4, generator=torch.Generator().manual_seed(0))
+    anchors = torch.cat([anchors[:, :2] * 0.5,
+                         anchors[:, :2] * 0.5 + 0.1 + anchors[:, 2:] * 0.4],
+                        dim=1)
+    gt = anchors[7].repeat(32, 1) + torch.linspace(0, 1e-3, 32)[:, None]
+    labels = torch.arange(1, 33, dtype=torch.int32)
+    valid = torch.ones(32, dtype=torch.bool)
+    valid[-1] = False
+    matched = [_match_anchors(anchors.to(d), (10.0, 10.0, 5.0, 5.0),
+                              gt[None].to(d), labels[None].to(d),
+                              valid[None].to(d)) for d in (device, 'cpu')]
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(matched[0][::2],
+                                                       matched[1][::2]))
+    log('phase6a anchor matching with 32 claims on one anchor: label {} on '
+        'the card, {} on the CPU (31 expected), equal {}'.format(
+            int(matched[0][0][0, 7]), int(matched[1][0][0, 7]), same))
+    if not same or int(matched[0][0][0, 7]) != 31:
+        failures.append('duplicate claims resolved differently')
+    if failures:
+        raise AssertionError('; '.join(failures))
+
+
+def phase_shape_model(device):
+    """phase6c: prepare_shape_model on the card (SHAPE_STEPS steps at
+    SHAPE_BATCH, as tests/test_shape_model.py), saved, read back with the
+    zoo's ``load_weights`` and built as tests/test_shape_model.py builds it
+    (``build_detector(make_shape_config(), ...)``; the zoo's entry of that
+    name is the 300x300 width-1.0 geometry, in the JAX package too), served
+    under ``fused_exact``: a 50x50 black square on a
+    96x96 white image is found as a rectangle with IoU > 0.25 among the top
+    10, and each fixed_point_suppress launch of that step is held against
+    its plain version."""
+    import torch
+    from watsor_tpu_torch.models.ssd import build_detector
+    from watsor_tpu_torch.models.zoo import load_weights
+    from watsor_tpu_torch.ops import nms_fixed_point
+    from watsor_tpu_torch.ops.boxes import iou_matrix
+    from watsor_tpu_torch.testing.prepare import (SHAPE_MODEL,
+                                                  make_shape_config,
+                                                  prepare_shape_model)
+    from watsor_tpu_torch.testing.shapes import SHAPE_LABELS
+    with tempfile.TemporaryDirectory() as model_dir:
+        start = time.perf_counter()
+        path, loss = prepare_shape_model(model_dir, steps=SHAPE_STEPS,
+                                         batch=SHAPE_BATCH, device=device)
+        train_s = time.perf_counter() - start
+        size = os.path.getsize(path)
+        detector = build_detector(
+            make_shape_config()._replace(nms_mode='fused_exact'),
+            variables=load_weights(model_dir, SHAPE_MODEL), device=device)
+    image = np.full((1, 96, 96, 3), 255, np.uint8)
+    image[0, 20:70, 25:75] = 0
+    fp = nms_fixed_point.fixed_point_suppress
+    calls = []
+    fp.launches = 0
+    with _recorded_kernels(calls):
+        out = detector.detect_batch(torch.from_numpy(image).to(device))
+        torch.cuda.synchronize()
+    launches = fp.launches
+    held = _hold_against_plain(calls)['fixed_point_suppress']
+    gt = torch.tensor([[20 / 96, 25 / 96, 70 / 96, 75 / 96]], device=device)
+    classes = out.classes[0][:10].cpu().numpy()
+    ious = iou_matrix(out.boxes[0][:10], gt)[:, 0].cpu().numpy()
+    hits = (classes == SHAPE_LABELS['rectangle']) & (ious > 0.25)
+    log('phase6c shape model: {} steps at batch {} on the card and precise '
+        'BN in {:.1f} s, final loss {:.4f}, {} ({} bytes) read by the '
+        "zoo's load_weights ({}x{}); the square: {} detections, top-10 "
+        'classes {} IoUs {}; fixed_point_suppress launches {} at {}, each '
+        'bit-identical to its plain version'.format(
+            SHAPE_STEPS, SHAPE_BATCH, train_s, loss, os.path.basename(path),
+            size, detector.config.input_size, detector.config.input_size,
+            int(out.valid[0]), classes.tolist(),
+            [round(float(x), 2) for x in ious], launches, held))
+    if not np.isfinite(loss) or not hits.any():
+        raise AssertionError('no rectangle with IoU > 0.25 among the top 10')
+    if launches < 1 or len(held) != launches:
+        raise AssertionError('fixed_point_suppress launches {}, held {}'
+                             .format(launches, len(held)))
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
@@ -1209,19 +1507,27 @@ def main():
                             'WATSOR_INT8_POINTWISE': None},
                            cameras=FLEET_CAMERAS,
                            inspect=lambda app, url: fleet_app_check(
-                               app, url, FLEET_CAMERAS)), None)]
+                               app, url, FLEET_CAMERAS)), None),
+        ('phase6a train', lambda: phase_train(device, 'ssd_mobilenet_v2',
+                                              'phase6a'), None),
+        ('phase6a train f32', lambda: phase_train_f32(device), None),
+        ('phase6b train', lambda: phase_train(device, 'efficientdet_lite0',
+                                              'phase6b'), None),
+        ('phase6c shape model', lambda: phase_shape_model(device), None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:
             failures.append(name)
             log('{} SKIPPED: {} failed'.format(name, needs))
             continue
+        phase_start = time.perf_counter()
         try:
             run()
         except Exception:
             traceback.print_exc()
             failures.append(name)
             log('{} FAILED'.format(name))
+        log('{}: {:.1f} s'.format(name, time.perf_counter() - phase_start))
     log('phases: {:.1f} s'.format(time.perf_counter() - start))
     alive = _threads_left()
     log('threads still running: {}'.format(', '.join(alive) or 'none'))

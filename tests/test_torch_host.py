@@ -8,6 +8,9 @@ import ast
 import glob
 import os
 import re
+import subprocess
+import sys
+import time
 from queue import Empty
 
 import cv2
@@ -216,6 +219,55 @@ def test_a_failed_native_load_is_kept(monkeypatch, tmp_path):
         errors.append(err.value)
     assert len(builds) == 1
     assert errors[0] is errors[1] is errors[2]
+
+
+_FIRST_LOAD = """
+import sys, time
+sys.path.insert(0, {root!r})
+from watsor_tpu_torch.io import native
+native._NATIVE_DIR = {native_dir!r}
+native._LIB_PATH = {lib!r}
+start = float(sys.argv[1])
+while time.time() < start:
+    time.sleep(0.001)
+try:
+    native.load()
+    print('loaded')
+except Exception as exc:
+    print(type(exc).__name__, str(exc).splitlines()[0])
+"""
+
+# a "linker" that writes the library slowly: its first 4 KiB, a pause,
+# then the rest, so that a partial file stands for 1.5 s
+_SLOW_MAKEFILE = """TARGET := libwatsor_io.so
+$(TARGET):
+\t{python} -c "import sys, time; data = open(sys.argv[1], 'rb').read(); \\
+f = open(sys.argv[2], 'wb'); f.write(data[:4096]); f.flush(); \\
+time.sleep(1.5); f.write(data[4096:]); f.close()" {source} $@
+"""
+
+
+def test_concurrent_first_loads_each_find_a_whole_library(tmp_path):
+    """Processes that find no library build it at the same time, as the
+    test workers of a fresh checkout do: each finds a whole library (here
+    any shared object, written slowly by a stand-in for the linker; it
+    lacks the runtime's symbols, so each load ends in the same
+    AttributeError), none a half-written file ("file too short"), and no
+    partial build is left behind."""
+    import _ctypes
+    (tmp_path / 'Makefile').write_text(_SLOW_MAKEFILE.format(
+        python=sys.executable, source=_ctypes.__file__))
+    script = _FIRST_LOAD.format(root=ROOT, native_dir=str(tmp_path),
+                                lib=str(tmp_path / 'libwatsor_io.so'))
+    start = time.time() + 2.0
+    procs = [subprocess.Popen([sys.executable, '-c', script,
+                               str(start + delay)],
+                              stdout=subprocess.PIPE, text=True)
+             for delay in (0.0, 0.6, 0.9, 1.2)]
+    outcomes = [proc.communicate(timeout=120)[0].strip() for proc in procs]
+    assert len(set(outcomes)) == 1, outcomes
+    assert outcomes[0].startswith('AttributeError'), outcomes
+    assert not list(tmp_path.glob('*.part'))
 
 
 def _copies():

@@ -1,4 +1,5 @@
-# Copy of watsor_tpu/io/native.py: paths adapted, a failed load kept.
+# Copy of watsor_tpu/io/native.py: paths adapted, a failed load kept, the
+# build renamed into place.
 """ctypes bindings for the native video I/O runtime (libwatsor_io.so).
 
 Builds the shared library on first use (``make`` in watsor_tpu/native/)
@@ -34,14 +35,26 @@ class NativeUnavailable(RuntimeError):
 
 
 def _build():
+    """``make`` the library into a file of this process's own, then rename
+    it over ``_LIB_PATH``: a process that finds the path finds a whole
+    library, however many processes build at once (the test workers of a
+    fresh checkout do; a half-written file loads as "file too short")."""
+    native_dir = os.path.abspath(_NATIVE_DIR)
+    partial = os.path.join(native_dir, '{}.{}.part'.format(
+        os.path.basename(_LIB_PATH), os.getpid()))
     try:
-        subprocess.run(['make', '-s'], cwd=os.path.abspath(_NATIVE_DIR),
-                       check=True, capture_output=True, timeout=300)
+        subprocess.run(['make', '-s', 'TARGET=' + os.path.basename(partial)],
+                       cwd=native_dir, check=True, capture_output=True,
+                       timeout=300)
+        os.replace(partial, _LIB_PATH)
     except (subprocess.CalledProcessError, subprocess.TimeoutExpired,
             FileNotFoundError) as e:
         detail = getattr(e, 'stderr', b'') or b''
         raise NativeUnavailable(
             'native build failed: {}'.format(detail.decode(errors='replace')))
+    finally:
+        if os.path.exists(partial):
+            os.remove(partial)
 
 
 def load():

@@ -41,6 +41,9 @@ from watsor_tpu_torch.models.ssd import (Detector, check_anchors,
                                          make_detect_batch, place_model,
                                          resolve_device)
 
+# flax momentum of every BatchNorm of the family (backbone, BiFPN, heads)
+EFFDET_BN_MOMENTUM = 0.99
+
 # published EfficientDet-Lite compound scaling:
 # variant -> (input_size, fpn_channels, fpn_repeats, head_repeats,
 #             anchor_scale)
@@ -122,16 +125,21 @@ class SeparableConv(nn.Module):
 
     def forward(self, x):
         x = conv_same(x, self.dw.weight, None, groups=x.shape[1])
-        return F.conv2d(x, self.pw.weight, self.pw.bias)
+        return F.conv2d(x, self.pw.weight.to(x.dtype),
+                        self.pw.bias.to(x.dtype))
 
 
 @lru_cache(maxsize=64)
 def _nearest_index(in_size, out_size, device):
     """jax.image.resize 'nearest': floor((i + 0.5) * in / out) in f32.
-    Cached per device, so that a captured step copies nothing."""
+    Cached per device, so that a captured step copies nothing. Made outside
+    inference mode even when the serving step asks first: the train step's
+    ``index_select`` saves it for backward, which an inference tensor
+    refuses."""
     src = np.floor((np.arange(out_size, dtype=np.float32) + 0.5) * in_size
                    / out_size).astype(np.int64)
-    return torch.from_numpy(src).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(src).to(device)
 
 
 def upsample_nearest(x, h, w):
@@ -340,6 +348,11 @@ class EfficientDet(nn.Module):
         else:
             self.cls_head = Head(self.cls_features, cfg.head_repeats, fpn, 5)
             self.box_head = Head(box_features, cfg.head_repeats, fpn, 5)
+        # every BatchNorm of the family has flax momentum 0.99 (torch's
+        # 0.01), where the SSD families' is 0.997; only training reads it
+        for module in self.modules():
+            if isinstance(module, nn.BatchNorm2d):
+                module.momentum = 1.0 - EFFDET_BN_MOMENTUM
 
     def forward(self, images):
         cfg = self.config
@@ -405,6 +418,12 @@ def effdet_anchors(cfg: EfficientDetConfig) -> np.ndarray:
     return np.concatenate(out, axis=0)
 
 
+def normalize_effdet(x, cfg):
+    """[0, 255] -> (x - mean_rgb) / stddev_rgb in ``cfg.dtype``, the
+    family's input normalization (serving and training)."""
+    return ((x.float() - cfg.mean_rgb) / cfg.stddev_rgb).to(cfg.dtype)
+
+
 def build_effdet(config: EfficientDetConfig = EfficientDetConfig(),
                  variables=None, seed=0, anchors=None,
                  device=None) -> Detector:
@@ -431,11 +450,9 @@ def build_effdet(config: EfficientDetConfig = EfficientDetConfig(),
         box_enc, logits = raw_native(images_f)
         return box_enc.float(), logits.float()
 
-    def normalize(x):
-        return ((x.float() - cfg.mean_rgb) / cfg.stddev_rgb).to(cfg.dtype)
-
     detect_batch = make_detect_batch(
-        cfg, anchors_dev, raw_native, normalize,
+        cfg, anchors_dev, raw_native,
+        lambda x: normalize_effdet(x, cfg),
         background_offset=1 if cfg.explicit_background else 0)
     return Detector(model, cfg, variables, anchors, device, detect_batch,
                     raw_apply, lambda device: build_effdet(

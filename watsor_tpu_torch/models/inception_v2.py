@@ -35,7 +35,7 @@ class SeparableStem(nn.Module):
 
     def forward(self, x):
         x = conv_same(x, self.dw.weight, None, stride=2, groups=3)
-        x = F.conv2d(x, self.pw.weight)
+        x = F.conv2d(x, self.pw.weight.to(x.dtype))
         return relu6(batch_norm(x, self.bn))
 
 

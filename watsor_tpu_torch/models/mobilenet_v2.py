@@ -6,6 +6,10 @@ the NHWC of the JAX package. Convolutions pad like TF/flax 'SAME', which
 is asymmetric at stride 2 (300 -> 150 pads (0, 1), 75 -> 38 pads (1, 1)),
 so the padding is computed for each layer from its input size. BatchNorm
 uses eps 1e-3 and runs in f32 on whatever dtype the convolutions produce.
+Every convolution casts its weight to the activation dtype where it is
+applied, as a flax ``Conv(dtype=...)`` does: the trainer keeps f32
+parameters under bf16 activations; on the serving path, whose weights are
+already in that dtype, the cast is a no-op.
 Module names follow the flax parameter tree so the weight bridge
 (models/weights.py) maps one onto the other by path; a module whose
 children carry other names in flax says so in ``FLAX_NAMES``.
@@ -67,7 +71,11 @@ def same_padding(size, kernel, stride):
 
 
 def conv_same(x, weight, bias=None, stride=1, groups=1):
-    """NCHW conv2d with TF 'SAME' padding computed from the input size."""
+    """NCHW conv2d with TF 'SAME' padding computed from the input size,
+    weight and bias cast to the activation dtype."""
+    weight = weight.to(x.dtype)
+    if bias is not None:
+        bias = bias.to(x.dtype)
     kh, kw = weight.shape[2:]
     top, bottom = same_padding(x.shape[2], kh, stride)
     left, right = same_padding(x.shape[3], kw, stride)
@@ -92,14 +100,41 @@ def relu6(x):
 
 
 def batch_norm(x, bn):
-    """Inference BatchNorm with ``bn``'s f32 statistics and parameters."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+    """BatchNorm with ``bn``'s f32 parameters. In eval mode it normalizes
+    with the running statistics. In train mode (``bn.training``) it does
+    what flax's ``BatchNorm(use_running_average=False)`` does: the moments
+    over N, H, W in f32 (or wider) whatever the activation dtype, the
+    biased variance as E[x^2] - E[x]^2 clipped at 0, the output in the
+    activation dtype, and ``running = (1 - r) * running + r * batch``
+    with r = ``bn.momentum`` (torch's convention: flax's momentum m is
+    r = 1 - m). With ``bn.momentum`` None, r = 1 / n at the n-th batch
+    since ``num_batches_tracked`` was 0, so the running statistics are the
+    mean of the batch moments (precise BN). ``F.batch_norm(training=True)``
+    would store the unbiased variance: n / (n - 1) off at a 1x1 map."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        if bn.momentum is None:
+            bn.num_batches_tracked += 1
+            rate = 1.0 / int(bn.num_batches_tracked)
+        else:
+            rate = bn.momentum
+        for running, batch in ((bn.running_mean, mean),
+                               (bn.running_var, var)):
+            running.mul_(1.0 - rate).add_(rate * batch)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + \
+        bn.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 def make_bn(channels):
-    """BatchNorm as flax's: eps 1e-3 (flax momentum 0.997 is torch's
-    0.003; only training reads it)."""
+    """BatchNorm as flax's: eps 1e-3, flax momentum 0.997 (torch's 0.003;
+    EfficientDet sets its own)."""
     return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.003)
 
 

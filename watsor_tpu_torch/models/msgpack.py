@@ -1,6 +1,7 @@
-"""A reader for flax's msgpack weight files (counterpart of the ``.msgpack``
-branch of watsor_tpu/models/zoo.py ``load_weights``, which calls
-``flax.serialization.msgpack_restore``).
+"""A reader and a writer of flax's msgpack weight files (counterpart of
+the ``.msgpack`` branches of watsor_tpu/models/zoo.py ``load_weights`` and
+``save_weights``, which call ``flax.serialization.msgpack_restore`` and
+``flax.serialization.to_bytes``).
 
 Pure Python and numpy: neither flax nor the ``msgpack`` package is needed.
 ``restore(data)`` returns what ``msgpack_restore`` returns for the files
@@ -18,6 +19,13 @@ and arrays over flax's chunk size, which it stores as
 joined back. ``bfloat16`` leaves are widened to float32 (exact: a bfloat16
 is the top half of a float32), since numpy has no bfloat16 without
 ``ml_dtypes``. Any other dtype outside ``READ_DTYPES`` raises, naming it.
+
+``to_bytes(tree)`` writes, byte for byte, what ``flax.serialization.to_bytes``
+writes for a tree of dicts with str keys and numpy array leaves, keys in
+the tree's order. It refuses what the reader would not give back as it
+was: an array over flax's chunk size (flax would chunk it), a dtype
+outside ``READ_DTYPES`` or a big-endian array (flax would store its bytes
+under a name that reads them as little-endian), and any other leaf.
 """
 
 import struct
@@ -30,6 +38,8 @@ READ_DTYPES = ('bool', 'int8', 'int16', 'int32', 'int64', 'uint8',
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = '__msgpack_chunked_array__'
+# flax.serialization.MAX_CHUNK_SIZE: larger arrays are written in chunks
+MAX_CHUNK_SIZE = 2 ** 30
 
 # fixed-width scalars: first byte -> (struct format, size)
 _FIXED = {0xca: ('>f', 4), 0xcb: ('>d', 8),
@@ -165,3 +175,105 @@ def load_msgpack(path):
     """A flax ``.msgpack`` weight file -> its variables tree."""
     with open(path, 'rb') as f:
         return restore(f.read())
+
+
+# the writer: msgpack's smallest encoding of each object, as msgpack-python
+# (which flax calls with use_bin_type=True) chooses it
+
+def _header(n, fix_base, fix_limit, wide):
+    """A length header: the fix form under ``fix_limit``, else the first
+    of ``wide`` ((limit, first byte, struct format), ...) that holds n."""
+    if n < fix_limit:
+        return bytes([fix_base | n])
+    for limit, code, fmt in wide:
+        if n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError('msgpack cannot hold a length of {}'.format(n))
+
+
+_U8, _U16, _U32 = 0xff, 0xffff, 0xffffffff
+
+
+def _uint(n):
+    if n < 0x80:
+        return bytes([n])
+    for limit, code, fmt in ((_U8, 0xcc, '>B'), (_U16, 0xcd, '>H'),
+                             (_U32, 0xce, '>I')):
+        if n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    return b'\xcf' + struct.pack('>Q', n)
+
+
+def _str(text):
+    data = text.encode('utf-8')
+    return _header(len(data), 0xa0, 32, ((_U8, 0xd9, '>B'),
+                                        (_U16, 0xda, '>H'),
+                                        (_U32, 0xdb, '>I'))) + data
+
+
+def _bin(data):
+    return _header(len(data), 0, 0, ((_U8, 0xc4, '>B'), (_U16, 0xc5, '>H'),
+                                     (_U32, 0xc6, '>I'))) + data
+
+
+def _ext_bytes(code, data):
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if len(data) in fixext:
+        head = bytes([fixext[len(data)]])
+    else:
+        head = _header(len(data), 0, 0, ((_U8, 0xc7, '>B'),
+                                         (_U16, 0xc8, '>H'),
+                                         (_U32, 0xc9, '>I')))
+    return head + struct.pack('>b', code) + data
+
+
+def _ndarray_bytes(arr):
+    """flax ``_ndarray_to_bytes``: ``[shape, dtype name, C-order bytes]``,
+    refusing what would not read back as it was."""
+    name = arr.dtype.name
+    if name not in READ_DTYPES:
+        raise ValueError('an array of dtype {!r} is not written; writable '
+                         'dtypes: {}'.format(name, ', '.join(READ_DTYPES)))
+    if arr.dtype.byteorder == '>':
+        raise ValueError('a big-endian {} array is not written: flax would '
+                         'store its bytes as little-endian'.format(name))
+    if arr.nbytes > MAX_CHUNK_SIZE:
+        raise ValueError('an array of {} bytes is not written: flax chunks '
+                         'arrays over {} bytes'.format(arr.nbytes,
+                                                       MAX_CHUNK_SIZE))
+    shape = _header(arr.ndim, 0x90, 16, ((_U16, 0xdc, '>H'),
+                                         (_U32, 0xdd, '>I')))
+    shape += b''.join(_uint(int(n)) for n in arr.shape)
+    return b'\x93' + shape + _str(name) + _bin(arr.tobytes('C'))
+
+
+def _pack(node, out):
+    if isinstance(node, dict):
+        out.append(_header(len(node), 0x80, 16, ((_U16, 0xde, '>H'),
+                                                 (_U32, 0xdf, '>I'))))
+        for key, value in node.items():
+            if not isinstance(key, str):
+                raise TypeError('a msgpack weight tree has str keys, not '
+                                '{!r}'.format(key))
+            out.append(_str(key))
+            _pack(value, out)
+    elif isinstance(node, np.ndarray):
+        out.append(_ext_bytes(_EXT_NDARRAY, _ndarray_bytes(node)))
+    else:
+        raise TypeError('a msgpack weight tree holds dicts and numpy arrays, '
+                        'not {}'.format(type(node).__name__))
+
+
+def to_bytes(tree):
+    """The bytes ``flax.serialization.to_bytes(tree)`` gives for a tree of
+    dicts with str keys and numpy array leaves."""
+    out = []
+    _pack(tree, out)
+    return b''.join(out)
+
+
+def save_msgpack(path, tree):
+    """Write ``tree`` to ``path`` as flax does (``to_bytes``)."""
+    data = to_bytes(tree)
+    with open(path, 'wb') as f:
+        f.write(data)

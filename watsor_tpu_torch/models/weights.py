@@ -93,26 +93,29 @@ def load_variables(model, variables):
     return model
 
 
-def export_variables(model):
-    """The flax-layout variables tree of ``model``, numpy f32 leaves."""
+def export_variables(model, dtype=np.float32):
+    """The flax-layout variables tree of ``model``: numpy leaves of
+    ``dtype`` (f32; f64 reads a model kept in f64 exactly), each a copy."""
     params, stats = {}, {}
+    to = {np.float32: torch.float32, np.float64: torch.float64}[
+        np.dtype(dtype).type]
 
-    def np32(t):
-        return t.detach().float().cpu().numpy()
+    def to_numpy(t):
+        return t.detach().to('cpu', to).numpy().copy()
 
     for path, _, leaf in leaves(model):
         if isinstance(leaf, nn.Conv2d):
             _set(params, path + ('kernel',),
-                 np.transpose(np32(leaf.weight), (2, 3, 1, 0)))
+                 np.transpose(to_numpy(leaf.weight), (2, 3, 1, 0)))
             if leaf.bias is not None:
-                _set(params, path + ('bias',), np32(leaf.bias))
+                _set(params, path + ('bias',), to_numpy(leaf.bias))
         elif isinstance(leaf, nn.BatchNorm2d):
-            _set(params, path + ('scale',), np32(leaf.weight))
-            _set(params, path + ('bias',), np32(leaf.bias))
-            _set(stats, path + ('mean',), np32(leaf.running_mean))
-            _set(stats, path + ('var',), np32(leaf.running_var))
+            _set(params, path + ('scale',), to_numpy(leaf.weight))
+            _set(params, path + ('bias',), to_numpy(leaf.bias))
+            _set(stats, path + ('mean',), to_numpy(leaf.running_mean))
+            _set(stats, path + ('var',), to_numpy(leaf.running_var))
         else:
-            _set(params, path, np32(leaf))
+            _set(params, path, to_numpy(leaf))
     return {'params': params, 'batch_stats': stats}
 
 

@@ -9,7 +9,9 @@ JAX package's warning. Stored weights decide the head geometry, as in the
 JAX package: the class count and predictor kernel (and SSDLite or not) of
 an SSD; the FPN width and depth, head depth, fusion method and class count
 of an EfficientDet. A TFLite conversion's ``postprocess`` entry carries
-the source graph's anchors and box-coder scales.
+the source graph's anchors and box-coder scales. ``save_weights`` writes
+the ``.msgpack`` file as the JAX package's does.
+
 """
 
 import logging
@@ -19,7 +21,7 @@ import numpy as np
 
 from watsor_tpu_torch.models.efficientdet import (EfficientDetConfig,
                                                   build_effdet, lite_config)
-from watsor_tpu_torch.models.msgpack import load_msgpack
+from watsor_tpu_torch.models.msgpack import load_msgpack, save_msgpack
 from watsor_tpu_torch.models.ssd import (SSDConfig, build_detector,
                                          resolve_device)
 from watsor_tpu_torch.ops.anchors import anchors_per_location
@@ -67,6 +69,24 @@ def load_weights(model_path, name):
     if os.path.exists(npz_file):
         return load_npz(npz_file)
     return None
+
+
+def _key_sorted(tree):
+    if isinstance(tree, dict):
+        return {key: _key_sorted(tree[key]) for key in sorted(tree)}
+    return np.asarray(tree)
+
+
+def save_weights(variables, model_path, name):
+    """Write ``variables`` (a flax-layout tree, as
+    ``weights.export_variables`` gives it) to ``<model_path>/<name>.msgpack``
+    in the bytes of the JAX package's ``save_weights``, which sorts the keys
+    (``jax.tree_util.tree_map``) and calls ``flax.serialization.to_bytes``.
+    Returns the file's path."""
+    os.makedirs(model_path, exist_ok=True)
+    path = os.path.join(model_path, name + '.msgpack')
+    save_msgpack(path, _key_sorted(variables))
+    return path
 
 
 def _stored_effdet_geometry(config, tree):

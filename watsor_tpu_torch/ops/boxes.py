@@ -36,6 +36,23 @@ def decode_boxes(rel_codes, anchors, scales=BOX_CODER_SCALES):
     return boxes.clamp(0.0, 1.0)
 
 
+def encode_boxes(boxes, anchors, scales=BOX_CODER_SCALES, eps=1e-8):
+    """Inverse of :func:`decode_boxes`: corner boxes [..., A, 4] against
+    anchors [..., A, 4] -> (ty, tx, th, tw) [..., A, 4] (the train step's
+    box targets)."""
+    ycenter_a, xcenter_a, ha, wa = anchors_to_center(anchors)
+    ymin, xmin, ymax, xmax = boxes.split(1, dim=-1)
+    h = ymax - ymin + eps
+    w = xmax - xmin + eps
+    ycenter = ymin + 0.5 * h
+    xcenter = xmin + 0.5 * w
+    ty = (ycenter - ycenter_a) / (ha + eps) * scales[0]
+    tx = (xcenter - xcenter_a) / (wa + eps) * scales[1]
+    th = torch.log(h / (ha + eps)) * scales[2]
+    tw = torch.log(w / (wa + eps)) * scales[3]
+    return torch.cat([ty, tx, th, tw], dim=-1)
+
+
 def box_area(boxes):
     """[..., 4] -> [...] area in normalized units."""
     return (boxes[..., 2] - boxes[..., 0]).clamp_min(0.0) * \

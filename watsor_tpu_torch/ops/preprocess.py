@@ -33,8 +33,10 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
 @lru_cache(maxsize=64)
 def _interp_tensor(in_size: int, out_size: int, device: torch.device):
     """``_interp_matrix`` on ``device``, copied there once: a step captured
-    in a CUDA graph copies nothing from the host."""
-    return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+    in a CUDA graph copies nothing from the host. Made outside inference
+    mode, so that the train step may use what the serving step cached."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
 
 
 def resize_bilinear(images, out_h: int, out_w: int):

@@ -1,6 +1,6 @@
 """Step profile of the port's main path on one CUDA card.
 
-    python -m watsor_tpu_torch.profile_step [--path main|int8|nms|fleet]
+    python -m watsor_tpu_torch.profile_step [--path main|int8|nms|fleet|train]
                                             [--model NAME[,NAME...]]
                                             [--min-blocks 132,264]
                                             [--baseline OTHER_CHECKOUT]
@@ -13,7 +13,8 @@ object on the last line. ``--path main`` (the default) profiles the fused
 walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
 (int8_full, pointwise units through the kernel) with ``nms: exact``;
 ``--path nms`` only the two suppression kernels; ``--path fleet`` the
-fleet and the device overlay on every visible card:
+fleet and the device overlay on every visible card; ``--path train`` the
+full-width train step (``profile_train``):
 
 - the forward of the plain bf16 model (convolutions with BatchNorm) and of
   the path's walk, as device time (CUDA-graph replay, which leaves out the
@@ -356,39 +357,60 @@ def profile_trace(be, images, cameras, results, label, steps=10, top=12,
             be.detect_batch(images, senders=cameras)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type.name == 'CUDA')
-    busy_us, cur_start, cur_end = 0.0, None, None
-    per_kernel = defaultdict(lambda: [0, 0.0])
-    for s, e, name in spans:
-        per_kernel[name][0] += 1
-        per_kernel[name][1] += e - s
+    results[key] = device_summary(prof, steps, wall, label, top)
+    return prof
+
+
+def device_spans(prof):
+    """(start us, end us, name) of every kernel and copy of a profile on
+    the device; the device-side spans of user annotations (the optimizer's
+    ``Optimizer.step#...``) are left out."""
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type.name == 'CUDA'
+                  and not getattr(e, 'is_user_annotation', False))
+
+
+def busy_us(spans):
+    """The union of the spans' intervals, in us."""
+    total, cur_start, cur_end = 0.0, None, None
+    for s, e, _ in sorted(spans):
         if cur_end is None or s > cur_end:
             if cur_end is not None:
-                busy_us += cur_end - cur_start
+                total += cur_end - cur_start
             cur_start, cur_end = s, e
         else:
             cur_end = max(cur_end, e)
     if cur_end is not None:
-        busy_us += cur_end - cur_start
+        total += cur_end - cur_start
+    return total
+
+
+def device_summary(prof, steps, wall, label, top=12):
+    """A profiler window of ``steps`` steps over ``wall`` ms: the device's
+    busy share (the union of its kernel and copy intervals), device events
+    a step, the kernels with the most device time; printed and returned."""
+    spans = device_spans(prof)
+    busy = busy_us(spans)
+    per_kernel = defaultdict(lambda: [0, 0.0])
+    for s, e, name in spans:
+        per_kernel[name][0] += 1
+        per_kernel[name][1] += e - s
     total_us = sum(t for _, t in per_kernel.values()) or 1.0
     kernels = [{'name': name[:80], 'calls': n, 'us_per_call': t / n,
                 'share': t / total_us}
                for name, (n, t) in sorted(per_kernel.items(),
                                           key=lambda kv: -kv[1][1])[:top]]
-    results[key] = {'steps': steps, 'wall_ms': wall,
-                          'device_busy_ms': busy_us / 1e3,
-                          'busy_share': busy_us / 1e3 / wall,
-                          'device_events_per_step': len(spans) / steps,
-                          'top_kernels': kernels}
     print('torch.profiler, {} {} steps: wall {:.3f} ms, device busy '
           '{:.3f} ms ({:.1%}), {:.0f} device events a step'.format(
-              steps, label, wall, busy_us / 1e3, busy_us / 1e3 / wall,
+              steps, label, wall, busy / 1e3, busy / 1e3 / wall,
               len(spans) / steps), flush=True)
     for k in kernels:
         print('  {:6.1%} {:5d} x {:9.2f} us  {}'.format(
             k['share'], k['calls'], k['us_per_call'], k['name']))
-    return prof
+    return {'steps': steps, 'wall_ms': wall, 'device_busy_ms': busy / 1e3,
+            'busy_share': busy / 1e3 / wall,
+            'device_events_per_step': len(spans) / steps,
+            'top_kernels': kernels}
 
 
 def profile_fleet(device, results, steps, pool_only=False):
@@ -489,6 +511,99 @@ def profile_fleet(device, results, steps, pool_only=False):
                 print('  {:8.4f} ms  {}'.format(ms, name), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     results['overlay'] = overlay
+
+
+def profile_train(device, results, steps, trace=None):
+    """--path train: the full-width train step (ssd_mobilenet_v2 at
+    300x300, bf16 activations, f32 parameters, AdamW, TRAIN_BATCH painted
+    images already on the card): its wall time a step (host clock to a
+    synchronize) and CUDA-event time, images/s, peak device memory, the
+    FLOPs that FlopCounterMode counts in one step and their share of the
+    card's bf16 dense peak; a profiler window of 10 steps (busy share,
+    device events a step, top kernels); and the device time of the forward
+    with its loss, the backward and the optimizer, from a window of steps
+    synchronized between the phases, each kernel counted in the phase
+    during whose host span it ran."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils.flop_counter import FlopCounterMode
+    from watsor_tpu_torch.workload import (PEAK_OPS_S, TRAIN_BATCH,
+                                           build_train_state,
+                                           timed_train_steps, train_batch)
+    config, state, step = build_train_state(device)
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in train_batch(config.input_size).items()}
+    timed_train_steps(state, step, batch, 5)
+    torch.cuda.reset_peak_memory_stats(device)
+    rows = timed_train_steps(state, step, batch, steps)
+    peak = torch.cuda.max_memory_allocated(device)
+    wall = statistics.median(r['wall_ms'] for r in rows)
+    event = statistics.median(r['event_ms'] for r in rows)
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch)
+    flops = counter.get_total_flops()
+
+    window = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(window):
+            step(state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - start) * 1e3
+    if trace:
+        prof.export_chrome_trace(trace)
+    summary = device_summary(prof, window, window_ms,
+                             'train ({})'.format(config.dtype))
+
+    # the phases: each ends in a synchronize inside its profiler range, so
+    # that its kernels start inside the range
+    phases = ('forward', 'backward', 'optimizer')
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(window):
+            with record_function('train_forward'):
+                loss, _ = step.loss_fn(state.model, batch)
+                torch.cuda.synchronize()
+            with record_function('train_backward'):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                torch.cuda.synchronize()
+            with record_function('train_optimizer'):
+                state.optimizer.step()
+                torch.cuda.synchronize()
+    ranges = defaultdict(list)
+    for e in prof.events():
+        if e.device_type.name == 'CPU' and e.name.startswith('train_'):
+            ranges[e.name[len('train_'):]].append(
+                (e.time_range.start, e.time_range.end))
+    kernels = device_spans(prof)
+    phase_us = {phase: busy_us([e for e in kernels if any(
+        a <= e[0] < b for a, b in ranges[phase])]) / window
+        for phase in phases}
+    peak_s = PEAK_OPS_S['bf16']
+    results['train'] = {
+        'model': 'ssd_mobilenet_v2', 'input': config.input_size,
+        'batch': TRAIN_BATCH, 'dtype': str(config.dtype),
+        'step_wall_ms': wall, 'step_event_ms': event,
+        'images_per_s': TRAIN_BATCH / wall * 1e3,
+        'peak_memory_bytes': peak, 'flops_per_step': flops,
+        'bf16_peak_share_of_wall': flops / (wall / 1e3 * peak_s),
+        'bf16_peak_share_of_busy': flops / (
+            summary['device_busy_ms'] / window / 1e3 * peak_s),
+        'phase_device_ms': {k: v / 1e3 for k, v in phase_us.items()},
+        'profile': summary}
+    print('train step ssd_mobilenet_v2 {0}x{0} {1} batch {2}: wall median '
+          '{3:.3f} ms, CUDA-event {4:.3f} ms, {5:.1f} images/s, peak memory '
+          '{6:.3f} GB; {7:.4g} GFLOP a step (FlopCounterMode), {8:.2%} of '
+          'the bf16 dense peak over the wall time, {9:.2%} over the busy '
+          'time; device time forward {10:.3f} ms, backward {11:.3f} ms, '
+          'optimizer {12:.3f} ms'.format(
+              config.input_size, config.dtype, TRAIN_BATCH, wall, event,
+              TRAIN_BATCH / wall * 1e3, peak / 1e9, flops / 1e9,
+              results['train']['bf16_peak_share_of_wall'],
+              results['train']['bf16_peak_share_of_busy'],
+              phase_us['forward'] / 1e3, phase_us['backward'] / 1e3,
+              phase_us['optimizer'] / 1e3), flush=True)
 
 
 def _baseline_launcher(tree):
@@ -1037,11 +1152,13 @@ def profile_nms(device, results, baseline=None):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--path', choices=('main', 'int8', 'nms', 'fleet'),
+    parser.add_argument('--path',
+                        choices=('main', 'int8', 'nms', 'fleet', 'train'),
                         default='main',
                         help='the main path (fused walk), the int8 path, '
-                             'the two suppression kernels alone, or the '
-                             'fleet and the device overlay')
+                             'the two suppression kernels alone, the '
+                             'fleet and the device overlay, or the train '
+                             'step')
     parser.add_argument('--model', default=None,
                         help='instead of a path, profile these families of '
                              'the zoo (comma list; "all" for every family '
@@ -1088,9 +1205,11 @@ def main(argv=None):
             torch.cuda.empty_cache()
         print(json.dumps(results), flush=True)
         return
-    if args.path in ('nms', 'fleet'):
+    if args.path in ('nms', 'fleet', 'train'):
         if args.path == 'nms':
             profile_nms(device, results, args.baseline)
+        elif args.path == 'train':
+            profile_train(device, results, args.steps, args.trace)
         else:
             results['cards'] = torch.cuda.device_count()
             profile_fleet(device, results, args.steps, args.pool_only)

@@ -21,6 +21,12 @@ FleetBackend, fed FLEET_BATCHES of detect planes at the model's 300x300
 (the service's decoders write planes at the model's size), and the
 device overlay (WATSOR_DEVICE_RENDER) at OVERLAY_BATCH frames of
 1920x1080 with 100 box slots a frame (``overlay_inputs``).
+
+Training (models/train.py): the zoo's ssd_mobilenet_v2 (and
+efficientdet_lite0) at full width, random weights from a seed, AdamW at
+make_optimizer's defaults, on TRAIN_BATCH images painted and labelled by
+testing/prepare.py at the model's input size (``train_batch``), each step
+timed by ``timed_train_steps``.
 """
 
 import contextlib
@@ -51,6 +57,7 @@ FUSED_SHAPES = [(75, 24, 144, 24)] + [(38, 32, 192, 32)] * 2 + \
     [(19, 64, 384, 64)] * 3 + [(19, 64, 384, 96)] + [(19, 96, 576, 96)] * 2 + \
     [(10, 160, 960, 160)] * 2 + [(10, 160, 960, 320)]
 FLEET_BATCHES = (16, 32)
+TRAIN_BATCH = 16
 OVERLAY_BATCH = 16
 OVERLAY_VALID = 30                    # valid boxes of the 100 slots a frame
 
@@ -345,3 +352,41 @@ def fleet_against_single(fleet, single, frames, senders, counters, reps,
             'equal': equal, 'kept': sum(int(g[:, -1, 0].sum()) for g in got),
             'fleet_wall_ms': walls['fleet'],
             'single_wall_ms': walls['single']}
+
+
+def train_batch(size, n=TRAIN_BATCH):
+    """``n`` shape images painted at ``size`` x ``size`` with their boxes
+    (up to 4 an image), as numpy arrays (testing/prepare.py)."""
+    from watsor_tpu_torch.testing.prepare import generate_batch
+    return generate_batch(n, (size, size))
+
+
+def build_train_state(device, name=MODEL):
+    """(config, TrainState, step) of the zoo's ``name`` on ``device``, at
+    the zoo's dtype, weights from seed 0, make_optimizer()'s AdamW."""
+    from watsor_tpu_torch.models.train import (init_train_state,
+                                               make_train_step)
+    from watsor_tpu_torch.models.zoo import model_config
+    config = model_config(name)
+    return config, init_train_state(config, device=device), \
+        make_train_step(config)
+
+
+def timed_train_steps(state, step, batch, n):
+    """``n`` train steps on ``batch``, each between two synchronizations:
+    [{'loss', 'wall_ms' (host clock), 'event_ms' (CUDA events around the
+    step's launches)}, ...]."""
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        rows.append({'loss': float(metrics['loss']),
+                     'wall_ms': (time.perf_counter() - t0) * 1e3,
+                     'event_ms': start.elapsed_time(end)})
+    return rows
