@@ -76,6 +76,24 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    into ``build_detector(make_shape_config())`` and finds a black square
    under ``fused_exact``, its fixed_point_suppress launches held bit for
    bit against the plain version;
+7. the (data, model) mesh on the one card:
+   a. the sharded train step of ssd_mobilenet_v2 at full width (bf16,
+      AdamW, a global batch of 16 painted images, 10 steps) over two
+      devices of the card (data 2) and four at model_parallel=2 (2 x 2,
+      the head kernels split): the loss under 0.9 of the first, each
+      mesh's step wall median and images/s;
+   b. one f64 step of the 2 x 2 mesh (TF32 off, SGD at learning rate 1,
+      4 images) against the unsharded step on the card: the loss within
+      1e-12 relative, the new statistics within 1e-10 and the gradient
+      within 1e-9 of each leaf's largest magnitude, replicas equal bit for
+      bit;
+   c. the main path's detector behind FleetDetector at (data 2, model 2)
+      on 16 detect planes: kernel 1 once and kernel 2 12 times a data
+      shard a step, each launch held against its plain version, the
+      packed output against the data-only fleet's under match_records'
+      rules, and the f32 raw head outputs (TF32 off) within 5e-4;
+   d. ``python -m watsor_tpu_torch.warmup -m ssd_mobilenet_v2 -b 1 8``
+      twice into a new kernel build directory: built, then found;
 
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
@@ -142,6 +160,18 @@ TRAIN_STATS_RTOL = 1e-4
 # the shape model's training run (tests/test_shape_model.py)
 SHAPE_STEPS = 150
 SHAPE_BATCH = 16
+# phase 7a: the sharded step's steps on one batch, and its meshes on the
+# one card: (label, devices, model size)
+SHARDED_STEPS = 10
+SHARDED_MESHES = (('data 2', 2, 1), ('2 x 2', 4, 2))
+# phase 7b: one f64 step of the 2 x 2 mesh against the unsharded step: the
+# loss relative, the new BatchNorm statistics and the gradient (SGD at
+# learning rate 1) against each leaf's largest magnitude
+SHARDED_LOSS_RTOL = 1e-12
+SHARDED_STATS_TOL = 1e-10
+SHARDED_GRAD_TOL = 1e-9
+# phase 7c: detect planes of the model-axis fleet
+MODEL_AXIS_PLANES = 16
 
 
 def log(*args):
@@ -1358,6 +1388,248 @@ def phase_shape_model(device):
                              .format(launches, len(held)))
 
 
+def phase_sharded_train(device, card):
+    """phase7a: the sharded train step of ssd_mobilenet_v2 at full width
+    (bf16 activations, f32 parameters, AdamW at 1e-3) over [card] * 2
+    (data 2) and [card] * 4 at model_parallel=2 (2 x 2), SHARDED_STEPS
+    steps on one global batch of TRAIN_BATCH painted images: every loss
+    finite and the last under TRAIN_FALL times the first."""
+    import torch
+    from watsor_tpu_torch.workload import (build_sharded_train,
+                                           timed_train_steps)
+    for label, n, model_size in SHARDED_MESHES:
+        devices = [device] * n
+        start = time.perf_counter()
+        config, state, step, batch, images = build_sharded_train(
+            devices, model_size)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - start
+        torch.cuda.reset_peak_memory_stats(device)
+        rows = timed_train_steps(state, step, batch, SHARDED_STEPS, devices)
+        peak = torch.cuda.max_memory_allocated(device)
+        losses = [row['loss'] for row in rows]
+        wall = statistics.median(row['wall_ms'] for row in rows[1:])
+        log('phase7a sharded train ssd_mobilenet_v2 {}x{} {} mesh {} ({} '
+            'devices on the card, {} head kernels split over the model '
+            'axis), global batch {}: build {:.2f} s, loss {:.4f} -> {:.4f} '
+            'in {} steps, step wall median {:.3f} ms (after the first, '
+            '{:.3f} ms), {:.1f} images/s, max_memory_allocated {:.3f} GB; '
+            '{}'.format(config.input_size, config.input_size, config.dtype,
+                        label, n, len(state.slices), images, build_s,
+                        losses[0], losses[-1], len(losses), wall,
+                        rows[0]['wall_ms'], images / wall * 1e3, peak / 1e9,
+                        card))
+        if not all(np.isfinite(losses)) or not losses[-1] < \
+                TRAIN_FALL * losses[0]:
+            raise AssertionError('mesh {}: losses {} do not fall under {} '
+                                 'of the first'.format(label, losses,
+                                                       TRAIN_FALL))
+        del state, step, batch
+        torch.cuda.empty_cache()
+
+
+def phase_sharded_train_f64(device):
+    """phase7b: one f64 step of ssd_mobilenet_v2 at full width with SGD at
+    learning rate 1 (the update is the gradient), TF32 off, 4 painted
+    images, over the 2 x 2 mesh [card] * 4 against the unsharded step on
+    the card, from the same seeded weights (``_check_variables``): the loss
+    within SHARDED_LOSS_RTOL relative, each new BatchNorm statistic within
+    SHARDED_STATS_TOL and each gradient within SHARDED_GRAD_TOL of its
+    leaf's largest magnitude, a leaf whose gradient is zero in exact
+    arithmetic (under SHARDED_GRAD_TOL of the tree's largest) held under
+    that share of the tree's largest; then every replica equal bit for
+    bit."""
+    import functools
+    import torch
+    from watsor_tpu_torch.models.train import (_model_for, init_train_state,
+                                               make_train_step)
+    from watsor_tpu_torch.models.weights import export_variables
+    from watsor_tpu_torch.models.zoo import model_config
+    from watsor_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from watsor_tpu_torch.workload import train_batch
+    batch = train_batch(300, n=4)
+    batch['gt_boxes'] = batch['gt_boxes'].astype(np.float64)
+    variables = _check_variables()
+    config = model_config('ssd_mobilenet_v2')._replace(dtype=torch.float64)
+    sgd = functools.partial(torch.optim.SGD, lr=1.0)
+    with tf32(False):
+        single = init_train_state(config, variables, sgd,
+                                  model=_model_for(config).to(torch.float64),
+                                  device=device)
+        before = dict(_flat(export_variables(single.model, np.float64)))
+        want_loss = float(make_train_step(config)(single, batch)['loss'])
+        want = dict(_flat(export_variables(single.model, np.float64)))
+        mesh = make_mesh(devices=[device] * 4, model_parallel=2)
+        state, step, shard_batch = make_sharded_train_step(
+            mesh, config, init=variables, optimizer=sgd,
+            model=_model_for(config).to(torch.float64))
+        start = time.perf_counter()
+        loss = float(step(state, shard_batch(batch))['loss'])
+        seconds = time.perf_counter() - start
+        got = dict(_flat(state.variables(np.float64)))
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    stats_err = max(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max()
+                    for k in want if k.startswith('batch_stats/'))
+    grads = {k: (before[k] - want[k], before[k] - got[k]) for k in want
+             if k.startswith('params/')}
+    tree_max = max(np.abs(w).max() for w, _ in grads.values())
+    live = sorted(((np.abs(g - w).max() / np.abs(w).max(), k)
+                   for k, (w, g) in grads.items()
+                   if np.abs(w).max() >= SHARDED_GRAD_TOL * tree_max),
+                  reverse=True)
+    zero = max([np.abs(g).max() / tree_max for w, g in grads.values()
+                if np.abs(w).max() < SHARDED_GRAD_TOL * tree_max] + [0.0])
+    n_zero = sum(np.abs(w).max() < SHARDED_GRAD_TOL * tree_max
+                 for w, _ in grads.values())
+    replicas = [dict(_flat(tree)) for tree in
+                state.replica_variables(np.float64).values()]
+    equal = all(np.array_equal(tree[k], replicas[0][k])
+                for tree in replicas[1:] for k in tree if k in replicas[0])
+    log('phase7b sharded f64 train step (2 x 2 mesh on the card, {} head '
+        'kernels split, TF32 off, SGD lr 1, 4 images) against the unsharded '
+        'step on the card: loss {:.15g} / {:.15g}, relative {:.3g} (bar {}); '
+        "new BatchNorm statistics against each leaf's largest {:.3g} (bar "
+        "{}); gradient against each leaf's largest: worst {:.3g} (bar {}) "
+        'at {}; {} leaves zero in exact arithmetic, under {:.3g} of the '
+        "tree's largest; {} replica(s) equal bit for bit: {}; sharded step "
+        '{:.2f} s'.format(len(state.slices), loss, want_loss, loss_err,
+                          SHARDED_LOSS_RTOL, stats_err, SHARDED_STATS_TOL,
+                          live[0][0], SHARDED_GRAD_TOL, live[0][1], n_zero,
+                          zero, len(replicas), equal, seconds))
+    failures = []
+    if loss_err > SHARDED_LOSS_RTOL:
+        failures.append('loss {:.3g}'.format(loss_err))
+    if stats_err > SHARDED_STATS_TOL:
+        failures.append('statistics {:.3g}'.format(stats_err))
+    if live[0][0] > SHARDED_GRAD_TOL or zero >= SHARDED_GRAD_TOL:
+        failures.append('gradients {:.3g}, zero leaves {:.3g}'.format(
+            live[0][0], zero))
+    if not equal:
+        failures.append('replicas differ')
+    if failures:
+        raise AssertionError('; '.join(failures))
+
+
+def phase_fleet_model_axis(device):
+    """phase7c: the main path's detector (bf16, ``fused_exact``, fused
+    blocks) behind FleetDetector over [card] * 4 at model_parallel=2 on
+    MODEL_AXIS_PLANES detect planes: kernel 1 once and kernel 2 FUSED_CALLS
+    times a data shard a step, each launch held against its plain version;
+    the packed output against the data-only fleet's ([card] * 2) under
+    match_records' rules (the same labels, IoU > 0.5, score within 5e-3),
+    and whether it is bit-identical; then the f32 detector with TF32 off,
+    its raw head outputs within F32_REL_TOL relative of the data-only
+    fleet's."""
+    import torch
+    from watsor_tpu_torch.ops import fused_block, nms_fixed_point
+    from watsor_tpu_torch.parallel import FleetDetector, make_mesh
+    from watsor_tpu_torch.parallel.fleet import split_heads
+    from watsor_tpu_torch.testing.golden import (detections_to_records,
+                                                 match_records)
+    from watsor_tpu_torch.workload import (build_main_path_detector,
+                                           detect_planes)
+    planes = detect_planes(MODEL_AXIS_PLANES, seed=4)
+    model_mesh = make_mesh(devices=[device] * 4, model_parallel=2)
+    data_mesh = make_mesh(devices=[device] * 2)
+    detector = build_main_path_detector(device)
+    fleet = FleetDetector(model_mesh, detector)
+    data_only = FleetDetector(data_mesh, detector)
+    counters = (nms_fixed_point.fixed_point_suppress,
+                fused_block.fused_inverted_residual)
+    fleet.detect(planes)
+    torch.cuda.synchronize()
+    calls = []
+    with _recorded_kernels(calls):
+        for counter in counters:
+            counter.launches = 0
+        got = fleet.detect(planes)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    shards = model_mesh.shape['data']
+    if launches != {'fixed_point_suppress': shards,
+                    'fused_inverted_residual': FUSED_CALLS * shards}:
+        raise AssertionError('model-axis fleet launches {}'.format(launches))
+    held = _hold_against_plain(calls)
+    want = data_only.detect(planes)
+
+    def records(outs):
+        fields = ('boxes', 'scores', 'classes', 'valid')
+        return detections_to_records(
+            *(torch.cat([getattr(o, f) for o in outs]).cpu().numpy()
+              for f in fields), top=100)
+
+    problems = [p for e, g in zip(records(want), records(got))
+                for p in match_records(e, g)]
+    identical = all(torch.equal(getattr(a, f), getattr(b, f))
+                    for a, b in zip(got, want)
+                    for f in ('boxes', 'scores', 'classes', 'valid'))
+    kept = sum(int(o.valid.sum()) for o in got)
+    with tf32(False):
+        f32 = build_main_path_detector(device, dtype=torch.float32)
+        fleets = (FleetDetector(model_mesh, f32),
+                  FleetDetector(data_mesh, f32))
+        x = torch.from_numpy(planes).to(device).float() * (2.0 / 255.0) - 1.0
+        size = len(planes) // shards
+        errs = [0.0, 0.0]
+        for i in range(shards):
+            outs = []
+            for one in fleets:
+                with one.on_shard(i):
+                    outs.append(one.replicas[i].raw_apply(
+                        x[i * size:(i + 1) * size]))
+            torch.cuda.synchronize()
+            for j, (a, b) in enumerate(zip(*outs)):
+                errs[j] = max(errs[j], float((a - b).abs().max() /
+                                             b.abs().max()))
+    log('phase7c model-axis fleet ({} x {} on the card, {} split heads a '
+        'shard) batch {}: launches {} (this step alone), fixed_point_suppress '
+        'at {} bit-identical to its plain version and the {} '
+        'fused_inverted_residual launches within tolerance; bf16 packed '
+        'output against the data-only fleet: {} detections, match_records '
+        'problems {}, bit-identical {}; f32 (TF32 off) raw head outputs '
+        'against the data-only fleet: box relative {:.3g}, class relative '
+        '{:.3g} (bar {})'.format(
+            shards, model_mesh.shape['model'],
+            len(split_heads(detector, model_mesh, model_mesh.rows[0])),
+            len(planes), launches,
+            sorted(set(held['fixed_point_suppress'])),
+            len(held['fused_inverted_residual']), kept, problems[:3],
+            identical, errs[0], errs[1], F32_REL_TOL))
+    if problems or max(errs) > F32_REL_TOL:
+        raise AssertionError('model-axis fleet: {} problems, raw errors {}'
+                             .format(len(problems), errs))
+
+
+def phase_warmup(device):
+    """phase7d: ``python -m watsor_tpu_torch.warmup -m ssd_mobilenet_v2 -b
+    1 8`` (with WATSOR_FUSED_BLOCKS=1) twice into a new kernel build
+    directory: the first run builds the four kernels, the second finds them
+    built; both print each bucket's seconds and exit 0."""
+    with tempfile.TemporaryDirectory() as cache:
+        for run in ('first', 'second'):
+            start = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, '-m', 'watsor_tpu_torch.warmup', '-m',
+                 'ssd_mobilenet_v2', '-b', '1', '8', '--cache-dir', cache],
+                cwd=ROOT, capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, WATSOR_FUSED_BLOCKS='1'))
+            seconds = time.perf_counter() - start
+            lines = proc.stdout.splitlines()
+            kernels = [line for line in lines if line.startswith('kernel ')]
+            buckets = [line for line in lines if line.startswith('batch ')]
+            log('phase7d warmup, {} run: exit {}, {:.1f} s; {}; {}'.format(
+                run, proc.returncode, seconds, kernels, buckets))
+            if proc.returncode != 0:
+                raise AssertionError('warmup exited {}:\n{}{}'.format(
+                    proc.returncode, proc.stdout[-2000:],
+                    proc.stderr[-4000:]))
+            want = 'built in' if run == 'first' else 'found built'
+            if len(kernels) != 4 or not all(want in k for k in kernels) or \
+                    len(buckets) != 2:
+                raise AssertionError('warmup {} run printed {}'.format(
+                    run, lines))
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
@@ -1513,7 +1785,14 @@ def main():
         ('phase6a train f32', lambda: phase_train_f32(device), None),
         ('phase6b train', lambda: phase_train(device, 'efficientdet_lite0',
                                               'phase6b'), None),
-        ('phase6c shape model', lambda: phase_shape_model(device), None)]
+        ('phase6c shape model', lambda: phase_shape_model(device), None),
+        ('phase7a sharded train', lambda: phase_sharded_train(device, card),
+         None),
+        ('phase7b sharded train f64',
+         lambda: phase_sharded_train_f64(device), None),
+        ('phase7c model-axis fleet', lambda: phase_fleet_model_axis(device),
+         None),
+        ('phase7d warmup', lambda: phase_warmup(device), None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:

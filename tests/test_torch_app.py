@@ -88,9 +88,7 @@ def _serve(tmp_path, extra='', model='ssd_mobilenet_v2_shapes',
         assert metrics['cameras'][0]['fps']['decoder'] > 0
         with urllib.request.urlopen(url + '/health', timeout=2) as response:
             assert response.read() == b'UP'
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(url + '/profiler', timeout=2)
-        assert err.value.code == 501
+        _check_profiler(app, url, tmp_path)
         # the camera's filters went to the device as tables
         assert set(app._camera_tables) == {'cam_t'}
         if during is not None:
@@ -100,6 +98,36 @@ def _serve(tmp_path, extra='', model='ssd_mobilenet_v2_shapes',
         thread.join(30)
     assert not thread.is_alive()
     return app, metrics
+
+
+def _check_profiler(app, url, tmp_path):
+    """GET /profiler answers 200 with its trace's directory, which holds a
+    trace on disk; a second request while the first captures is answered
+    409 (watsor_tpu/main.py:732-770)."""
+    app._args.log_path = str(tmp_path)
+    answers = {}
+
+    def capture():
+        with urllib.request.urlopen(url + '/profiler?seconds=2',
+                                    timeout=60) as response:
+            answers['first'] = response.status, json.loads(response.read())
+
+    first = threading.Thread(target=capture)
+    first.start()
+    time.sleep(0.5)
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(url + '/profiler?seconds=1', timeout=30)
+    assert err.value.code == 409
+    first.join(60)
+    assert not first.is_alive()
+    status, body = answers['first']
+    assert status == 200 and body['seconds'] == 2.0
+    assert os.path.dirname(body['trace_dir']) == str(tmp_path)
+    assert os.path.basename(body['trace_dir']).startswith('watsor-trace-')
+    trace = os.path.join(body['trace_dir'], 'trace.json')
+    assert os.path.getsize(trace) > 0
+    with open(trace) as f:
+        assert json.load(f)['traceEvents']
 
 
 def _stalled_viewer(port, path):

@@ -341,9 +341,105 @@ def test_mesh_spans_the_device_pool(monkeypatch):
         (torch.device('cpu', 0), torch.device('cpu'))
 
 
-def test_model_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        make_mesh(model_parallel=2, devices=['cpu', 'cpu'])
+def test_mesh_lays_a_data_by_model_grid():
+    """Row-major as watsor_tpu/parallel/mesh.py:27-40 lays it: row i is
+    data shard i, its devices the shard's model group."""
+    devices = ['cpu:0', 'cpu'] * 3
+    mesh = make_mesh(devices=devices, model_parallel=2)
+    assert mesh.shape == {'data': 3, 'model': 2}
+    assert mesh.rows == ((torch.device('cpu', 0), torch.device('cpu')),) * 3
+    assert mesh.data_devices == (torch.device('cpu', 0),) * 3
+    assert make_mesh(devices=devices, model_parallel=3).rows == \
+        ((torch.device('cpu', 0), torch.device('cpu'),
+          torch.device('cpu', 0)),
+         (torch.device('cpu'), torch.device('cpu', 0), torch.device('cpu')))
+
+
+@pytest.mark.parametrize('n,model_parallel', [(3, 2), (4, 3), (2, 0)])
+def test_mesh_raises_on_a_model_size_that_does_not_divide(n, model_parallel):
+    with pytest.raises(ValueError, match='not divisible'):
+        make_mesh(model_parallel=model_parallel, devices=['cpu'] * n)
+
+
+def test_mesh_takes_the_first_n_devices(monkeypatch):
+    devices = ['cpu:0', 'cpu', 'cpu:0', 'cpu']
+    assert make_mesh(3, devices=devices).devices == \
+        (torch.device('cpu', 0), torch.device('cpu'), torch.device('cpu', 0))
+    assert make_mesh(2, 2, devices).shape == {'data': 1, 'model': 2}
+    assert make_mesh(8, devices=devices).shape['data'] == 4
+    monkeypatch.setenv('WATSOR_DEVICE_POOL', 'cpu:1')
+    assert make_mesh(1).devices == (torch.device('cpu'),)
+
+
+@pytest.mark.parametrize('kind', ['plain', 'fused'])
+def test_model_axis_fleet_matches_jax_and_the_data_only_fleet(
+        ssd_pair, monkeypatch, kind):
+    """FleetDetector at (data 2, model 2) on the CPU: each row's replica
+    runs its head kernels split over the row's model group (12 split heads
+    a shard: at 96x96 every head's channels are even), against the port's
+    data-only fleet over the same rows (bit for bit on the CPU) and, for
+    the plain walk, JAX's FleetDetector over make_mesh(8, model_parallel=2)
+    at the bars above; the fused walk at width 1.0."""
+    from watsor_tpu.parallel.fleet import FleetDetector as JaxFleetDetector
+    from watsor_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from watsor_tpu_torch.models.ssd_fused import build_fused_detector
+    from watsor_tpu_torch.parallel.heads import SplitHead
+    jax_det, port = ssd_pair
+    if kind == 'fused':
+        port = build_fused_detector(build_detector(SSDConfig(
+            dtype=torch.float32, num_classes=3, input_size=SIZE,
+            extra_features=(32, 32, 32, 32), nms_mode='fused_exact'),
+            device='cpu'))
+    calls = []
+    run = SplitHead.__call__
+    monkeypatch.setattr(SplitHead, '__call__',
+                        lambda self, x: calls.append(x.shape) or run(self, x))
+    frames = _frames(11, 4, SIZE)
+    fleet = FleetDetector(make_mesh(devices=['cpu:0', 'cpu'] * 2,
+                                    model_parallel=2), port)
+    assert fleet.replicas[0] is fleet.replicas[1]
+    assert fleet.replicas[0] is not port
+    assert fleet.devices == (torch.device('cpu', 0),) * 2
+    got = _concat(fleet.detect(frames))
+    assert len(calls) == 2 * 12
+    data_only = _concat(FleetDetector(make_mesh(devices=['cpu:0'] * 2),
+                                      port).detect(frames))
+    for g, w in zip(got, data_only):
+        np.testing.assert_array_equal(g, w)
+    assert int(got[3].sum()) > 0, 'the frames must give detections'
+    backend = FleetBackend(fleet)
+    assert backend.device_name == 'CPU MESH {data: 2, model: 2}'
+    np.testing.assert_array_equal(backend.detect_batch(frames)[0], got[0])
+    if kind == 'fused':
+        return
+    jax_fleet = JaxFleetDetector(jax_make_mesh(8, model_parallel=2),
+                                 jax_det.config, detector=jax_det)
+    want = [np.asarray(a) for a in jax_fleet.detect(jnp.asarray(frames))]
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=BOX_TOL)
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+
+
+def test_model_axis_fleet_of_other_walks(ssd_pair, effdet_pair):
+    """Over a model axis of two: EfficientDet has no kernel the rule splits
+    and runs data-parallel, equal to the data-only fleet; an int8 walk
+    cannot split its heads and says so."""
+    from watsor_tpu_torch.models.quantize import build_quantized_detector
+    _, port = effdet_pair
+    mesh = make_mesh(devices=['cpu'] * 4, model_parallel=2)
+    frames = _frames(12, 4, port.config.input_size)
+    got = _concat(FleetDetector(mesh, port).detect(frames))
+    want = _concat(FleetDetector(make_mesh(devices=['cpu'] * 2),
+                                 port).detect(frames))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    _, ssd = ssd_pair
+    int8 = build_quantized_detector(ssd.config, ssd.variables,
+                                    anchors=ssd.anchors, device='cpu')
+    with pytest.raises(ValueError, match='cannot split its head kernels'):
+        FleetDetector(mesh, int8)
+    assert FleetDetector(mesh, int8, model_parallel=False).replicas[0] \
+        is int8
 
 
 def test_batch_sharding_splits_into_equal_contiguous_shards():

@@ -2,10 +2,12 @@
 
 Each kernel is one self-contained ``csrc/<name>.cu`` with a plain C
 interface. ``load(name)`` compiles it with ``nvcc`` for ``sm_90a`` into
-``build/watsor_tpu_torch/`` beside the package, keyed on a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing is built when a module is imported: only a wrapper that is
-about to launch a kernel on a CUDA tensor calls ``load``.
+``build/watsor_tpu_torch/`` beside the package (or the directory that
+``WATSOR_KERNEL_CACHE_DIR`` names), keyed on a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one is reused, in
+this process and in later ones. Nothing is built when a module is
+imported: only a wrapper that is about to launch a kernel on a CUDA tensor
+calls ``load`` (or the build-ahead CLI, watsor_tpu_torch/warmup.py).
 """
 
 import ctypes
@@ -44,11 +46,19 @@ def _flags(defines):
     return NVCC_FLAGS + tuple('-D' + d for d in defines)
 
 
-def _library_path(name, source, defines=()):
-    """Where ``source`` builds to for its current text and ``defines``."""
+def build_dir():
+    """The directory the libraries build into: WATSOR_KERNEL_CACHE_DIR, or
+    ``build/watsor_tpu_torch/`` beside the package."""
+    return os.environ.get('WATSOR_KERNEL_CACHE_DIR') or BUILD_DIR
+
+
+def library_path(name, source=None, defines=()):
+    """Where ``source`` (``csrc/<name>.cu`` by default) builds to for its
+    current text and ``defines``."""
+    source = source or os.path.join(CSRC_DIR, name + '.cu')
     with open(source, 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(_flags(defines)).encode())
-    return os.path.join(BUILD_DIR, '{}-{}.so'.format(
+    return os.path.join(build_dir(), '{}-{}.so'.format(
         name, digest.hexdigest()[:16]))
 
 
@@ -73,9 +83,9 @@ def load(name, signatures, source=None, defines=()):
             lib = _libs.get(key)
         if lib is not None:
             return lib
-        path = _library_path(name, source, defines)
+        path = library_path(name, source, defines)
         if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = '{}.{}.{}.tmp'.format(path, os.getpid(),
                                         threading.get_ident())
             proc = subprocess.run([_nvcc(), *_flags(defines), '-o', tmp,

@@ -323,14 +323,17 @@ class FleetBackend(DetectorBackend):
         self._max_batch = max_batch
         self._lock = threading.Lock()
         mesh = fleet.mesh
-        self._devices = mesh.devices
+        self._devices = fleet.devices
         self._data_size = mesh.shape['data']
         if min_batch is None:
             min_batch = _min_bucket_env()
         self._min_bucket = min(_bucket(max(int(min_batch), 1)),
                                _bucket(max_batch))
-        self.device_name = '{} MESH {{data: {}}}'.format(
-            self._devices[0].type.upper(), self._data_size)
+        axes = ', '.join('{}: {}'.format(axis, size)
+                         for axis, size in mesh.shape.items()
+                         if axis == 'data' or size > 1)
+        self.device_name = '{} MESH {{{}}}'.format(
+            self._devices[0].type.upper(), axes)
         size = fleet.config.input_size
         self.input_hw = (size, size)
         self._table_stores = None

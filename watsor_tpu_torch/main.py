@@ -6,10 +6,11 @@ the CLI.
 Copied from watsor_tpu/main.py (``Application``,
 ``_parse_commandline_arguments``, the HTTP routes and the lifecycle), with
 its JAX branches replaced by the PyTorch detection path: the detector
-build, the device pool, the profiler route (501) and ``run`` without the
-platform pin and discovery probe. The host graph is the port's own copy of
-the JAX package's (decoders, balanced queue, sieve, effects, snapshot,
-MQTT, HTTP). Every model of the JAX package's zoo is served (``model:``
+build, the device pool, the profiler route (torch.profiler) and ``run``
+without the platform pin and discovery probe; ``--check-config`` as the
+JAX package's, over the port's modules. The host graph is the port's own
+copy of the JAX package's (decoders, balanced queue, sieve, effects,
+snapshot, MQTT, HTTP). Every model of the JAX package's zoo is served (``model:``
 in the config or ``--model``). Knobs honoured as in the JAX package:
 ``TRT_FLOAT_PRECISION=32|16``, ``WATSOR_FUSED_BLOCKS=1`` (plain
 ssd_mobilenet_v2 only), ``WATSOR_QUANTIZE=int8`` (the ``ssd_`` models) or
@@ -47,8 +48,6 @@ from watsor_tpu_torch.runtime.watchdog import WatchDog
 
 _LOGGER = logging.getLogger('watsor_tpu_torch.main')
 
-_NOT_PORTED = 'is not ported to watsor_tpu_torch yet (ROADMAP.md, queue A)'
-
 Camera = namedtuple('Camera', [
     'name', 'config', 'buffer_in', 'buffer_out', 'decoder', 'sieve',
     'visual_effects', 'encoder', 'snapshot', 'mqtt', 'rate_limiter'])
@@ -77,6 +76,71 @@ def _parse_commandline_arguments(argv=None):
                              'and exit 0/1 without starting — for CI and '
                              'k8s init containers')
     return parser.parse_args(argv)
+
+
+# copied from watsor_tpu/main.py:70-131 with the port's modules
+def check_config(args):
+    """Validate everything startup would reject, without starting:
+    schema + secrets (config loader), the model name, every camera's
+    mask file/alpha channel, and the decoder argv translation (reporting
+    which flags would need WATSOR_FFMPEG_FALLBACK=1). Returns the number
+    of problems found and prints a human report."""
+    problems = []
+    try:
+        config = normalize(validate(parse(args.config)),
+                           os.path.dirname(os.path.abspath(args.config)))
+    except Exception as exc:
+        print('config: INVALID\n{}'.format(exc))
+        return 1
+    print('config: schema ok ({} camera(s))'.format(len(config['cameras'])))
+
+    try:
+        model_name, watched, nms = detector_spec_from_config(config, args)
+        print('model: {} (watched labels: {}, nms: {})'.format(
+            model_name, sorted(watched) if watched else 'all',
+            nms or 'default'))
+    except SystemExit as exc:
+        problems.append(str(exc))
+
+    from watsor_tpu_torch.io.video import decoder_args_from_argv
+    for camera in config['cameras']:
+        name = next(iter(camera))
+        camera_config = camera[name]
+        mask = camera_config.get('mask')
+        if mask:
+            try:
+                import cv2
+                from watsor_tpu_torch.filters.mask import (ZoneMask,
+                                                           get_alpha_channel)
+                image = cv2.imread(mask, cv2.IMREAD_UNCHANGED)
+                if image is None:
+                    raise IOError('unreadable mask file {}'.format(mask))
+                alpha = get_alpha_channel(image)
+                # validate against the CONFIGURED frame size, exactly as
+                # TorchApplication._create_filters will (a size mismatch is
+                # startup-fatal and must fail the check)
+                zones = ZoneMask(alpha, (camera_config['height'],
+                                         camera_config['width'])).num_zones
+                print('camera {}: mask ok ({} zone(s))'.format(name, zones))
+            except Exception as exc:
+                problems.append('camera {}: mask: {}'.format(name, exc))
+        decoder_argv = camera_config.get('ffmpeg', {}).get('decoder', [])
+        try:
+            translated = decoder_args_from_argv(decoder_argv)
+            if translated.unknown:
+                print('camera {}: decoder flags not natively translated: '
+                      '{} (needs WATSOR_FFMPEG_FALLBACK=1)'.format(
+                          name, ' '.join(translated.unknown)))
+            else:
+                print('camera {}: decoder argv ok'.format(name))
+        except Exception as exc:
+            problems.append('camera {}: decoder argv: {}'.format(name, exc))
+
+    for problem in problems:
+        print('PROBLEM: {}'.format(problem))
+    print('check-config: {}'.format(
+        'OK' if not problems else '{} problem(s)'.format(len(problems))))
+    return len(problems)
 
 
 def detector_spec_from_config(config, args):
@@ -189,6 +253,7 @@ class TorchApplication:
         self._zone_refiners = {}
         self._mesh = None
         self._device_renderer = None
+        self._profiler_lock = threading.Lock()
         # injectable for tests: device -> DetectorBackend (the reference's
         # analog is swapping in the analytic shape detector, SURVEY.md §4)
         self._backend_factory = backend_factory
@@ -402,13 +467,14 @@ class TorchApplication:
                       decoder, sieve, visual_effects, encoder, snapshot,
                       mqtt, rate_limiter)
 
-    def _detector_factory(self, config):
-        """device -> Detector, for the configured model and knobs."""
+    def _detector_factory(self, config, precision=None):
+        """device -> Detector, for the configured model and knobs;
+        ``precision`` ('32' or '16') in place of TRT_FLOAT_PRECISION."""
         from watsor_tpu_torch.models.zoo import model_config
         model_name, watched, nms_mode = detector_spec_from_config(
             config, self._args)
         dtype = None
-        precision = os.environ.get('TRT_FLOAT_PRECISION')
+        precision = precision or os.environ.get('TRT_FLOAT_PRECISION')
         if precision:
             dtype = {'32': torch.float32, '16': torch.bfloat16}.get(precision)
             if dtype is None:
@@ -694,11 +760,53 @@ class TorchApplication:
             response = Response('Internal error', status=500)
         return response(environ, start_response)
 
+    # keep at most this many capture directories; older ones are pruned so
+    # repeated captures cannot grow the log volume without bound
+    _PROFILER_KEEP = 8
+
     def _profiler_response(self, request):
+        """GET /profiler?seconds=N: capture a torch.profiler trace (CUDA
+        kernels and copies on the card with the host's operators; the
+        host's alone on the CPU) of whatever the service runs for N
+        seconds (at most 10), written as a Chrome trace under
+        ``watsor-trace-<t>`` in the log path (or the temp dir), viewable in
+        Perfetto (counterpart of watsor_tpu/main.py:732-770).
+
+        Single-flight: one profiler runs at a time in a process, and each
+        capture holds a request thread for up to 10 s, so a second
+        concurrent request is answered 409."""
+        import glob
+        import shutil
+        import tempfile
+        import time as time_module
+
+        from torch.profiler import ProfilerActivity, profile
         from werkzeug.wrappers import Response
-        return Response(json.dumps({'error': 'the profiler route ' +
-                                    _NOT_PORTED}),
-                        status=501, mimetype='application/json')
+
+        if not self._profiler_lock.acquire(blocking=False):
+            return Response(
+                json.dumps({'error': 'profiler capture already in progress'}),
+                status=409, mimetype='application/json')
+        try:
+            seconds = min(float(request.args.get('seconds', 2)), 10.0)
+            base = self._args.log_path or tempfile.gettempdir()
+            trace_dir = os.path.join(
+                base, 'watsor-trace-{}'.format(int(time_module.time())))
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                time_module.sleep(seconds)
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, 'trace.json'))
+            stale = sorted(glob.glob(os.path.join(base, 'watsor-trace-*')))
+            for old in stale[:-self._PROFILER_KEEP]:
+                shutil.rmtree(old, ignore_errors=True)
+            return Response(json.dumps({'trace_dir': trace_dir,
+                                        'seconds': seconds}),
+                            mimetype='application/json')
+        finally:
+            self._profiler_lock.release()
 
     def _snapshot_response(self, path):
         from werkzeug.wrappers import Response
@@ -923,8 +1031,7 @@ def make_http_server(port, app, host='0.0.0.0'):
 def main(argv=None):
     args = _parse_commandline_arguments(argv)
     if args.check_config:
-        raise SystemExit('--check-config ' + _NOT_PORTED +
-                         '; run python -m watsor_tpu.main --check-config')
+        raise SystemExit(1 if check_config(args) else 0)
     TorchApplication(args).run()
 
 

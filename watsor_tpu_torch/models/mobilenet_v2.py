@@ -15,11 +15,18 @@ Module names follow the flax parameter tree so the weight bridge
 children carry other names in flax says so in ``FLAX_NAMES``.
 """
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
+
+# the moment exchange of the sharded train step this thread runs a shard
+# of (parallel/fleet.py), if any
+_EXCHANGE = threading.local()
 
 # (expand_ratio, features, repeats, first_stride)
 MOBILENET_V2_BLOCKS = (
@@ -99,24 +106,25 @@ def relu6(x):
     return x.clamp(0.0, 6.0)
 
 
-def batch_norm(x, bn):
-    """BatchNorm with ``bn``'s f32 parameters. In eval mode it normalizes
-    with the running statistics. In train mode (``bn.training``) it does
-    what flax's ``BatchNorm(use_running_average=False)`` does: the moments
-    over N, H, W in f32 (or wider) whatever the activation dtype, the
-    biased variance as E[x^2] - E[x]^2 clipped at 0, the output in the
-    activation dtype, and ``running = (1 - r) * running + r * batch``
-    with r = ``bn.momentum`` (torch's convention: flax's momentum m is
-    r = 1 - m). With ``bn.momentum`` None, r = 1 / n at the n-th batch
-    since ``num_batches_tracked`` was 0, so the running statistics are the
-    mean of the batch moments (precise BN). ``F.batch_norm(training=True)``
-    would store the unbiased variance: n / (n - 1) off at a 1x1 map."""
-    if not bn.training:
-        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                            bn.bias, False, 0.0, bn.eps)
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+@contextlib.contextmanager
+def exchanging_moments(exchange, shard):
+    """Within the block, this thread's train-mode BatchNorms take the batch
+    moments of the global batch from ``exchange`` (parallel/fleet.py
+    ``MomentExchange``), as data shard ``shard``."""
+    _EXCHANGE.current = exchange, shard
+    try:
+        yield
+    finally:
+        _EXCHANGE.current = None
+
+
+def update_running(bn, mean, var):
+    """Move ``bn``'s running statistics toward the batch moments, as flax
+    does: ``running = (1 - r) * running + r * batch`` with r =
+    ``bn.momentum`` (torch's convention: flax's momentum m is r = 1 - m).
+    With ``bn.momentum`` None, r = 1 / n at the n-th batch since
+    ``num_batches_tracked`` was 0, so the running statistics are the mean
+    of the batch moments (precise BN)."""
     with torch.no_grad():
         if bn.momentum is None:
             bn.num_batches_tracked += 1
@@ -126,6 +134,31 @@ def batch_norm(x, bn):
         for running, batch in ((bn.running_mean, mean),
                                (bn.running_var, var)):
             running.mul_(1.0 - rate).add_(rate * batch)
+
+
+def batch_norm(x, bn):
+    """BatchNorm with ``bn``'s f32 parameters. In eval mode it normalizes
+    with the running statistics. In train mode (``bn.training``) it does
+    what flax's ``BatchNorm(use_running_average=False)`` does: the moments
+    over N, H, W in f32 (or wider) whatever the activation dtype, the
+    biased variance as E[x^2] - E[x]^2 clipped at 0, the output in the
+    activation dtype, and the running statistics moved once
+    (``update_running``). ``F.batch_norm(training=True)`` would store the
+    unbiased variance: n / (n - 1) off at a 1x1 map. Inside a sharded
+    train step (``exchanging_moments``) the moments are those of the
+    global batch, and the exchange moves the running statistics."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    current = getattr(_EXCHANGE, 'current', None)
+    if current is not None:
+        exchange, shard = current
+        mean, var = exchange.moments(shard, bn, xf)
+    else:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        update_running(bn, mean, var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + \
         bn.bias[:, None, None]

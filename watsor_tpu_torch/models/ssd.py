@@ -3,10 +3,11 @@
 
 ``SSD.forward`` takes NHWC images and returns the raw head outputs
 ``box_enc [B, A, 4]`` and ``logits [B, A, num_classes + 1]`` (column 0 =
-background), both f32. The heads' NCHW outputs are permuted to NHWC before
-the reshape, so anchors line up as in the flax model. The three SSD
-families of the JAX package: MobileNetV2 (at any width), MobileNetV1 and
-InceptionV2 backbones, each plain or SSDLite (separable extras and heads).
+background), both f32 (f64 for an f64 model). The heads' NCHW outputs are
+permuted to NHWC before the reshape, so anchors line up as in the flax
+model. The three SSD families of the JAX package: MobileNetV2 (at any
+width), MobileNetV1 and InceptionV2 backbones, each plain or SSDLite
+(separable extras and heads).
 """
 
 import functools
@@ -132,37 +133,49 @@ class SSD(nn.Module):
             feats.append(getattr(self, 'extra{}'.format(i))(x))
         return feats
 
-    def forward(self, images):
-        """images [B, S, S, 3] NHWC float -> (box_enc, logits), f32."""
+    def forward(self, images, heads=None):
+        """images [B, S, S, 3] NHWC float -> (box_enc, logits), f32.
+        ``heads``: {head name: head} to run in place of the module's own
+        head convolutions (a split head of parallel/heads.py)."""
         x = images.permute(0, 3, 1, 2)       # NCHW view of NHWC storage
         feats = self.features(x)
-        heads, inputs = [], []
+        heads = heads or {}
+        pairs, inputs = [], []
         for i, feat in enumerate(feats):
-            box = getattr(self, 'box_head{}'.format(i))
-            cls = getattr(self, 'cls_head{}'.format(i))
-            heads.append(((box.weight, box.bias), (cls.weight, cls.bias)))
+            pair = []
+            for kind in ('box', 'cls'):
+                name = '{}_head{}'.format(kind, i)
+                conv = getattr(self, name)
+                pair.append(heads.get(name, (conv.weight, conv.bias)))
+            pairs.append(tuple(pair))
             if self.config.lite:
                 feat = (getattr(self, 'box_head{}_dw'.format(i))(feat),
                         getattr(self, 'cls_head{}_dw'.format(i))(feat))
             inputs.append(feat)
-        return apply_heads(inputs, heads, self.config.num_classes + 1)
+        return apply_heads(inputs, pairs, self.config.num_classes + 1)
 
 
 def apply_heads(features, heads, num_cls):
     """Run the ((box weight, bias), (cls weight, bias)) conv heads over
     NCHW features (or (box input, cls input) pairs, as SSDLite's separate
     depthwise stages give them) and concatenate the anchors in the flax
-    (NHWC) order."""
+    (NHWC) order. A head may instead be a callable (x) -> y: a head split
+    over a model group (parallel/heads.py)."""
+    def conv(x, head):
+        return head(x) if callable(head) else conv_same(x, *head)
+
     box_out, cls_out = [], []
     for feat, (box_head, cls_head) in zip(features, heads):
         box_in, cls_in = feat if isinstance(feat, tuple) else (feat, feat)
         B = box_in.shape[0]
-        b = conv_same(box_in, *box_head)
-        c = conv_same(cls_in, *cls_head)
+        b = conv(box_in, box_head)
+        c = conv(cls_in, cls_head)
         box_out.append(b.permute(0, 2, 3, 1).reshape(B, -1, 4))
         cls_out.append(c.permute(0, 2, 3, 1).reshape(B, -1, num_cls))
-    return (torch.cat(box_out, dim=1).float(),
-            torch.cat(cls_out, dim=1).float())
+    # f32 at least: f64 stays f64 (the f64 train step)
+    wide = torch.promote_types(box_out[0].dtype, torch.float32)
+    return (torch.cat(box_out, dim=1).to(wide),
+            torch.cat(cls_out, dim=1).to(wide))
 
 
 def anchors_for(cfg: SSDConfig) -> np.ndarray:
@@ -181,7 +194,8 @@ class Detector(NamedTuple):
     device: torch.device
     detect_batch: Any          # (images_u8 [B, H, W, 3]) -> DetectionsBatch
     raw_apply: Any             # (images_f [B, S, S, 3]) -> (box_enc, logits)
-    # (device) -> the same detector on ``device``, from these weights
+    # (device) -> the same detector on ``device``, from these weights; the
+    # SSD walks also take ``heads=`` (build_detector's)
     rebuild: Any = None
 
 
@@ -283,13 +297,15 @@ def check_anchors(anchors, expected):
 
 
 def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
-                   anchors=None, device=None) -> Detector:
+                   anchors=None, device=None, heads=None) -> Detector:
     """Build the model on ``device`` (None: the current CUDA device; pass
     'cpu' for the CPU), adopting ``variables`` (a flax-layout tree of numpy
     arrays) or, without them, initializing from ``seed``.
 
     ``anchors``: optional [A, 4] override (TFLite conversions carry the
-    exact grid of the source graph)."""
+    exact grid of the source graph). ``heads``: {head name: head} run in
+    place of those head convolutions (``SSD.forward``), as the fleet's
+    model axis splits them."""
     cfg = config
     device = resolve_device(device)
     model, variables = place_model(SSD(cfg), variables, seed, device,
@@ -298,11 +314,12 @@ def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
     anchors_dev = torch.from_numpy(anchors).to(device)
 
     def raw_apply(images_f):
-        return model(images_f.to(cfg.dtype))
+        return model(images_f.to(cfg.dtype), heads)
 
     detect_batch = make_detect_batch(
         cfg, anchors_dev, raw_apply,
         functools.partial(normalize_images, dtype=cfg.dtype))
     return Detector(model, cfg, variables, anchors, device, detect_batch,
-                    raw_apply, lambda device: build_detector(
-                        cfg, variables, anchors=anchors, device=device))
+                    raw_apply, lambda device, heads=None: build_detector(
+                        cfg, variables, anchors=anchors, device=device,
+                        heads=heads))

@@ -145,8 +145,9 @@ def fused_features(pack, x, cfg: SSDConfig):
     return feats
 
 
-def build_fused_detector(detector):
-    """The same Detector contract with the fused walk as its forward."""
+def build_fused_detector(detector, heads=None):
+    """The same Detector contract with the fused walk as its forward;
+    ``heads`` as ``build_detector``'s."""
     cfg = detector.config
     # watsor_tpu/models/ssd_fused.py:117-121
     if getattr(cfg, 'backbone', None) != 'mobilenet_v2' or cfg.lite:
@@ -156,7 +157,8 @@ def build_fused_detector(detector):
                          'channel plan')
     pack = build_folded_pack(detector.variables, cfg, detector.device)
     num_heads = len(cfg.extra_features) + 2
-    heads = [(pack['box_head{}'.format(i)], pack['cls_head{}'.format(i)])
+    heads = dict(pack, **(heads or {}))
+    heads = [(heads['box_head{}'.format(i)], heads['cls_head{}'.format(i)])
              for i in range(num_heads)]
     anchors_dev = torch.from_numpy(detector.anchors).to(detector.device)
 
@@ -170,5 +172,5 @@ def build_fused_detector(detector):
         functools.partial(normalize_images, dtype=cfg.dtype))
     return detector._replace(
         model=None, detect_batch=detect_batch, raw_apply=raw_apply,
-        rebuild=lambda device: build_fused_detector(
-            detector.rebuild(device)))
+        rebuild=lambda device, heads=None: build_fused_detector(
+            detector.rebuild(device), heads))

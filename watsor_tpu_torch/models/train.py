@@ -9,8 +9,9 @@ convolution casts its weight to the activation dtype where it is applied
 (a flax ``Conv(dtype=bf16)``); BatchNorm in train mode takes the batch
 moments in f32 and moves its running statistics as flax's does
 (models/mobilenet_v2.py ``batch_norm``); the heads' outputs are cast to f32
-before the losses. Gradients are autograd's through the plain modules: the
-JAX package has no backward kernel, and no TPU kernel lies on this path.
+(an f64 model's stay f64) before the losses. Gradients are autograd's
+through the plain modules: the JAX package has no backward kernel, and no
+TPU kernel lies on this path.
 
 Ground truth arrives padded to a fixed number of boxes with a validity
 mask; matching is a dense [B, A, G] IoU argmax, and the losses are masked
@@ -187,7 +188,13 @@ def make_train_step(config):
     ``metrics``: 0-d tensors on the device (no host sync), f32 (f64 with
     f64 boxes): ``loss``,
     ``cls_loss``, ``box_loss`` and ``num_positive``, the positive count
-    clamped at 1 as the losses divide by it."""
+    clamped at 1 as the losses divide by it.
+
+    ``step.loss_terms(model, batch, heads=None)`` is the loss before its
+    division: (the focal loss's sum, the Huber loss's sum over positives,
+    the positive count), which the sharded step (parallel/fleet.py) sums
+    over its data shards before ``combine_losses``; ``heads`` as
+    ``SSD.forward``'s."""
     anchors = np.asarray(_anchors_for(config), np.float32)
     box_coder_scales = tuple(getattr(config, 'box_coder_scales', None) or
                              BOX_CODER_SCALES)
@@ -198,19 +205,23 @@ def make_train_step(config):
     ingest = _ingest_for(config)
     on_device = {}
 
-    def loss_fn(model, batch):
+    def loss_terms(model, batch, heads=None):
         device = next(model.parameters()).device
         if device not in on_device:
-            on_device[device] = torch.from_numpy(anchors).to(device)
+            on_device.setdefault(device, torch.from_numpy(anchors).to(device))
         anchors_dev = on_device[device]
         images, gt_boxes, gt_labels, gt_valid = (
             torch.as_tensor(batch[k]).to(device)
             for k in ('images', 'gt_boxes', 'gt_labels', 'gt_valid'))
-        box_enc, logits = model(ingest(images))
+        x = ingest(images)
+        box_enc, logits = model(x) if heads is None else model(x, heads)
         # the model may emit bf16: losses sum over every anchor, which an
-        # 8-bit mantissa cannot hold, so they are taken in f32
-        box_enc = box_enc.float()
-        logits = logits.float()
+        # 8-bit mantissa cannot hold, so they are taken in f32 (in f64 for
+        # an f64 model, whose sums then do not depend on how the batch is
+        # sharded)
+        wide = torch.promote_types(logits.dtype, torch.float32)
+        box_enc = box_enc.to(wide)
+        logits = logits.to(wide)
         cls_t, box_t, positive = _match_anchors(
             anchors_dev, box_coder_scales, gt_boxes, gt_labels,
             gt_valid.bool())
@@ -219,15 +230,13 @@ def make_train_step(config):
         else:
             # label 0 -> the all-zero row (jax.nn.one_hot of -1)
             onehot = F.one_hot(cls_t, num_cls + 1)[..., 1:]
-        cls_loss = _focal_loss(logits, onehot.float()).sum()
+        cls_loss = _focal_loss(logits, onehot.to(wide)).sum()
         box_loss = torch.where(
             positive, _huber_loss(box_enc, box_t).sum(-1), 0.0).sum()
-        num_pos = positive.sum().float().clamp_min(1.0)
-        loss = (cls_loss + box_loss) / num_pos
-        return loss, {'loss': loss.detach(),
-                      'cls_loss': (cls_loss / num_pos).detach(),
-                      'box_loss': (box_loss / num_pos).detach(),
-                      'num_positive': num_pos}
+        return cls_loss, box_loss, positive.sum()
+
+    def loss_fn(model, batch):
+        return combine_losses(*loss_terms(model, batch))
 
     def step(state, batch):
         loss, metrics = loss_fn(state.model, batch)
@@ -238,7 +247,19 @@ def make_train_step(config):
         return metrics
 
     step.loss_fn = loss_fn
+    step.loss_terms = loss_terms
     return step
+
+
+def combine_losses(cls_loss, box_loss, positives):
+    """(loss, metrics) from the loss's sums and its positive count: the
+    sums over the positive count clamped at 1."""
+    num_pos = positives.float().clamp_min(1.0)
+    loss = (cls_loss + box_loss) / num_pos
+    return loss, {'loss': loss.detach(),
+                  'cls_loss': (cls_loss / num_pos).detach(),
+                  'box_loss': (box_loss / num_pos).detach(),
+                  'num_positive': num_pos}
 
 
 def calibrate_batch_stats(config, variables, image_batches, model=None,

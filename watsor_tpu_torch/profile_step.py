@@ -1,6 +1,7 @@
 """Step profile of the port's main path on one CUDA card.
 
     python -m watsor_tpu_torch.profile_step [--path main|int8|nms|fleet|train]
+                                            [--mesh DxM]
                                             [--model NAME[,NAME...]]
                                             [--min-blocks 132,264]
                                             [--baseline OTHER_CHECKOUT]
@@ -14,7 +15,9 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
 (int8_full, pointwise units through the kernel) with ``nms: exact``;
 ``--path nms`` only the two suppression kernels; ``--path fleet`` the
 fleet and the device overlay on every visible card; ``--path train`` the
-full-width train step (``profile_train``):
+full-width train step (``profile_train``), with ``--mesh DxM`` the sharded
+step over a data x model mesh of the visible cards
+(``profile_sharded_train``):
 
 - the forward of the plain bf16 model (convolutions with BatchNorm) and of
   the path's walk, as device time (CUDA-graph replay, which leaves out the
@@ -77,6 +80,7 @@ compare numbers only within one run.
 """
 
 import argparse
+import bisect
 import ctypes
 import json
 import os
@@ -604,6 +608,121 @@ def profile_train(device, results, steps, trace=None):
               results['train']['bf16_peak_share_of_busy'],
               phase_us['forward'] / 1e3, phase_us['backward'] / 1e3,
               phase_us['optimizer'] / 1e3), flush=True)
+
+
+def profile_sharded_train(results, steps, spec):
+    """--path train --mesh DxM: the sharded train step of ssd_mobilenet_v2
+    at full width (parallel/fleet.py make_sharded_train_step) over a D x M
+    mesh of the visible cards (a card repeats where the mesh has more
+    devices), TRAIN_BATCH images a distinct card: its wall time a step and
+    images/s, a profiler window of up to 10 steps (each card's busy share and
+    device events a step), and each phase's wall time from a window of
+    steps synchronized between the phases (forward with the moment
+    exchange, backward with the gradient sum, optimizer) with each card's
+    device time in it; then the unsharded step on the first card at
+    TRAIN_BATCH images, timed the same way."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from watsor_tpu_torch.workload import (TRAIN_BATCH, build_sharded_train,
+                                           build_train_state, mesh_devices,
+                                           synchronize, timed_train_steps,
+                                           train_batch)
+    devices, model_parallel = mesh_devices(spec)
+    config, state, step, batch, n = build_sharded_train(devices,
+                                                        model_parallel)
+    cards = sorted({d.index for d in devices})
+    timed_train_steps(state, step, batch, 3, devices)
+    rows = timed_train_steps(state, step, batch, steps, devices)
+    wall = statistics.median(r['wall_ms'] for r in rows)
+    print('sharded train step ssd_mobilenet_v2 {0}x{0} {1} mesh {2} over '
+          'cards {3}, global batch {4}: wall median {5:.3f} ms, {6:.1f} '
+          'images/s'.format(config.input_size, config.dtype, spec, cards, n,
+                            wall, n / wall * 1e3), flush=True)
+
+    def card_spans(prof):
+        """{card: [(start us, end us, name)]} of the devices' kernels and
+        copies."""
+        spans = defaultdict(list)
+        for e in prof.events():
+            if e.device_type.name == 'CUDA' and \
+                    not getattr(e, 'is_user_annotation', False):
+                spans[e.device_index].append(
+                    (e.time_range.start, e.time_range.end, e.name))
+        return spans
+
+    window = min(10, steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(window):
+            step(state, batch)
+        synchronize(devices)
+        window_ms = (time.perf_counter() - start) * 1e3
+    spans = card_spans(prof)
+    busy = {card: (busy_us(spans[card]) / 1e3 / window,
+                   len(spans[card]) / window) for card in cards}
+    for card, (b, e) in busy.items():
+        print('  card {}: device busy {:.3f} ms a step ({:.1%} of the '
+              'window), {:.0f} device events a step'.format(
+                  card, b, b * window / window_ms, e), flush=True)
+    phases = ('forward', 'backward', 'optimizer')
+    phase_wall = defaultdict(list)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(window):
+            for phase in phases:
+                t0 = time.perf_counter()
+                with record_function('train_' + phase):
+                    if phase == 'forward':
+                        loss, _ = step.forward(state, batch)
+                    elif phase == 'backward':
+                        step.backward(state, loss)
+                    else:
+                        step.update(state)
+                    synchronize(devices)
+                phase_wall[phase].append((time.perf_counter() - t0) * 1e3)
+    # each kernel counted in the phase during whose host range it started
+    ranges = sorted((e.time_range.start, e.time_range.end,
+                     e.name[len('train_'):]) for e in prof.events()
+                    if e.device_type.name == 'CPU' and
+                    e.name.startswith('train_'))
+    starts = [a for a, _, _ in ranges]
+    in_phase = defaultdict(lambda: defaultdict(list))
+    for card, card_list in card_spans(prof).items():
+        for span in card_list:
+            k = bisect.bisect_right(starts, span[0]) - 1
+            if k >= 0 and span[0] < ranges[k][1]:
+                in_phase[ranges[k][2]][card].append(span)
+    phase_cards = {phase: {card: busy_us(in_phase[phase][card]) / 1e3 /
+                           window for card in cards} for phase in phases}
+    for phase in phases:
+        print('  {}: wall {:.3f} ms, device {}'.format(
+            phase, statistics.median(phase_wall[phase]),
+            {c: round(b, 3) for c, b in phase_cards[phase].items()}),
+            flush=True)
+    del state, step, batch, loss
+    torch.cuda.empty_cache()
+    _, single, single_step = build_train_state(torch.device('cuda', 0))
+    single_batch = {k: torch.as_tensor(v).to('cuda:0') for k, v in
+                    train_batch(config.input_size).items()}
+    timed_train_steps(single, single_step, single_batch, 3)
+    single_wall = statistics.median(
+        r['wall_ms'] for r in timed_train_steps(single, single_step,
+                                                single_batch, steps))
+    print('  one card unsharded at batch {}: wall median {:.3f} ms, {:.1f} '
+          'images/s'.format(TRAIN_BATCH, single_wall,
+                            TRAIN_BATCH / single_wall * 1e3), flush=True)
+    results['train_mesh'] = {
+        'mesh': spec, 'devices': [str(d) for d in devices], 'cards': cards,
+        'global_batch': n, 'step_wall_ms': wall,
+        'images_per_s': n / wall * 1e3, 'window_wall_ms': window_ms,
+        'card_busy_ms_per_step': {c: b for c, (b, _) in busy.items()},
+        'card_busy_share': {c: b * window / window_ms
+                            for c, (b, _) in busy.items()},
+        'card_events_per_step': {c: e for c, (_, e) in busy.items()},
+        'phase_wall_ms': {k: statistics.median(v)
+                          for k, v in phase_wall.items()},
+        'phase_card_device_ms': phase_cards,
+        'single_card_batch': TRAIN_BATCH, 'single_card_wall_ms': single_wall,
+        'single_card_images_per_s': TRAIN_BATCH / single_wall * 1e3}
 
 
 def _baseline_launcher(tree):
@@ -1177,6 +1296,10 @@ def main(argv=None):
     parser.add_argument('--pool-only', action='store_true',
                         help='fleet path: only the mesh over every visible '
                              'card (for a run on several cards)')
+    parser.add_argument('--mesh', default=None,
+                        help='train path: the sharded step over a DxM '
+                             '(data x model) mesh of the visible cards, '
+                             'e.g. 2x2')
     parser.add_argument('--steps', type=int, default=30,
                         help='backend steps timed per turn')
     parser.add_argument('--trace', default=None,
@@ -1208,6 +1331,9 @@ def main(argv=None):
     if args.path in ('nms', 'fleet', 'train'):
         if args.path == 'nms':
             profile_nms(device, results, args.baseline)
+        elif args.path == 'train' and args.mesh:
+            results['cards'] = torch.cuda.device_count()
+            profile_sharded_train(results, args.steps, args.mesh)
         elif args.path == 'train':
             profile_train(device, results, args.steps, args.trace)
         else:

@@ -26,7 +26,8 @@ Training (models/train.py): the zoo's ssd_mobilenet_v2 (and
 efficientdet_lite0) at full width, random weights from a seed, AdamW at
 make_optimizer's defaults, on TRAIN_BATCH images painted and labelled by
 testing/prepare.py at the model's input size (``train_batch``), each step
-timed by ``timed_train_steps``.
+timed by ``timed_train_steps``; and the sharded step over a (data, model)
+mesh (``build_sharded_train``), TRAIN_BATCH images a card.
 """
 
 import contextlib
@@ -99,14 +100,16 @@ def watched_labels():
     return {coco_label_index(name) for name in WATCHED}
 
 
-def build_main_path_detector(device, fused=True, seed=0):
+def build_main_path_detector(device, fused=True, seed=0,
+                             dtype=torch.bfloat16):
     """The slice's detector on ``device``: the fused walk, or with
-    ``fused=False`` the plain model (convolutions with BatchNorm)."""
+    ``fused=False`` the plain model (convolutions with BatchNorm), its
+    activations in ``dtype``."""
     from watsor_tpu_torch.models.ssd_fused import build_fused_detector
     from watsor_tpu_torch.models.zoo import build_from_zoo
     detector = build_from_zoo(MODEL, None, seed=seed,
                               active_labels=watched_labels(),
-                              nms_mode='fused_exact', dtype=torch.bfloat16,
+                              nms_mode='fused_exact', dtype=dtype,
                               device=device)
     return build_fused_detector(detector) if fused else detector
 
@@ -372,21 +375,55 @@ def build_train_state(device, name=MODEL):
         make_train_step(config)
 
 
-def timed_train_steps(state, step, batch, n):
-    """``n`` train steps on ``batch``, each between two synchronizations:
-    [{'loss', 'wall_ms' (host clock), 'event_ms' (CUDA events around the
-    step's launches)}, ...]."""
+def synchronize(devices=None):
+    """Wait for every CUDA device of ``devices`` (the current one by
+    default)."""
+    for device in dict.fromkeys(devices or [None]):
+        torch.cuda.synchronize(device)
+
+
+def timed_train_steps(state, step, batch, n, devices=None):
+    """``n`` train steps on ``batch``, each between two synchronizations
+    of ``devices`` (the current device by default): [{'loss', 'wall_ms'
+    (host clock), 'event_ms' (CUDA events around the step's launches on
+    the current stream)}, ...]."""
     rows = []
     for _ in range(n):
-        torch.cuda.synchronize()
+        synchronize(devices)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
         metrics = step(state, batch)
         end.record()
-        end.synchronize()
+        synchronize(devices)
         rows.append({'loss': float(metrics['loss']),
                      'wall_ms': (time.perf_counter() - t0) * 1e3,
                      'event_ms': start.elapsed_time(end)})
     return rows
+
+
+def mesh_devices(spec):
+    """'DxM' -> (the devices of a D x M mesh over the visible cards, each
+    card repeated in turn where the mesh has more devices than there are
+    cards, and M)."""
+    data, model = (int(x) for x in spec.lower().split('x'))
+    cards = torch.cuda.device_count()
+    return [torch.device('cuda', i % cards)
+            for i in range(data * model)], model
+
+
+def build_sharded_train(devices, model_parallel, name=MODEL,
+                        per_card=TRAIN_BATCH):
+    """(config, state, step, sharded batch, global batch) of the zoo's
+    ``name`` over a mesh of ``devices`` (parallel/fleet.py
+    ``make_sharded_train_step``): weights from seed 0, make_optimizer()'s
+    AdamW, ``per_card`` painted images a distinct card."""
+    from watsor_tpu_torch.models.zoo import model_config
+    from watsor_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    config = model_config(name)
+    mesh = make_mesh(devices=devices, model_parallel=model_parallel)
+    state, step, shard_batch = make_sharded_train_step(mesh, config)
+    n = per_card * len(set(devices))
+    return config, state, step, shard_batch(
+        train_batch(config.input_size, n=n)), n
