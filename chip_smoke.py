@@ -94,6 +94,19 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
       rules, and the f32 raw head outputs (TF32 off) within 5e-4;
    d. ``python -m watsor_tpu_torch.warmup -m ssd_mobilenet_v2 -b 1 8``
       twice into a new kernel build directory: built, then found;
+8. the converters and the timing modules:
+   a. the main path's seeded ssd_mobilenet_v2 tree (90 classes, full
+      width) named as the public ssd_mobilenet_v2_coco_2018_03_29
+      checkpoint names it, converted by the port's converter with no
+      TensorFlow, saved as ``.msgpack`` and read back by the zoo into the
+      main-path detector: the tree and the detections on 8 frames of
+      1920x1080 bit-identical to the seeded detector's, kernels 1 and 2
+      launched (1 and 12 a step);
+   b. ``timing.measure_production_device_path`` at batch 32 of 1920x1080
+      (detect, filters, pack and overlay in one captured CUDA graph,
+      kernel 1 in it) beside the eager backend step wall; the chained
+      harness on the main path's detect step at batch 8 within 10% of
+      profile_step's graph time; that step's roofline row;
 
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
@@ -172,6 +185,10 @@ SHARDED_STATS_TOL = 1e-10
 SHARDED_GRAD_TOL = 1e-9
 # phase 7c: detect planes of the model-axis fleet
 MODEL_AXIS_PLANES = 16
+# phase 8b: the production path's batch (and cameras), and how far the
+# chained harness's step time may lie from profile_step's graph time
+PRODUCTION_BATCH = 32
+CHAINED_GRAPH_RTOL = 0.10
 
 
 def log(*args):
@@ -1630,6 +1647,155 @@ def phase_warmup(device):
                     run, lines))
 
 
+def phase_converted_weights(device, card):
+    """phase8a: the main path's seeded ssd_mobilenet_v2 tree (90 classes,
+    full width) named as the public ssd_mobilenet_v2_coco_2018_03_29
+    checkpoint names it (testing/slim.py), converted by the port's
+    convert_tf_od_variables with no TensorFlow (the geometry inferred),
+    saved by save_weights and read back by the zoo into the main-path
+    detector (fused blocks, ``fused_exact``); the converted tree equals
+    the seeded one bit for bit, and so do the detections on BATCH frames
+    of 1920x1080, with kernel 1 once and kernel 2 FUSED_CALLS times a step,
+    each launch held against its plain version."""
+    import torch
+    from watsor_tpu_torch.models import convert
+    from watsor_tpu_torch.models.zoo import MODEL_REGISTRY, save_weights
+    from watsor_tpu_torch.ops import fused_block, nms_fixed_point
+    from watsor_tpu_torch.testing.slim import tf_od_variables
+    from watsor_tpu_torch.workload import (MODEL, build_main_path_detector,
+                                           frames_1080p)
+    seeded = build_main_path_detector(device)
+    names = tf_od_variables(seeded.variables, MODEL_REGISTRY[MODEL])
+    start = time.perf_counter()
+    tree, cfg = convert.convert_tf_od_variables(names)
+    convert_s = time.perf_counter() - start
+    geometry = (cfg.backbone, cfg.num_classes, cfg.head_kernel, cfg.lite)
+    if geometry != ('mobilenet_v2', 90, 3, False):
+        raise AssertionError('inferred geometry {}'.format(geometry))
+    got, want = dict(_flat(tree)), dict(_flat(seeded.variables))
+    if got.keys() != want.keys() or \
+            not all(np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError('the converted tree differs from the seeded one')
+    frames = frames_1080p(device)
+    counters = (nms_fixed_point.fixed_point_suppress,
+                fused_block.fused_inverted_residual)
+    with tempfile.TemporaryDirectory() as model_dir:
+        path = save_weights(tree, model_dir, MODEL)
+        size = os.path.getsize(path)
+        converted = build_main_path_detector(device, seed=1,
+                                             model_path=model_dir)
+    converted.detect_batch(frames)
+    torch.cuda.synchronize()
+    calls = []
+    with _recorded_kernels(calls):
+        for counter in counters:
+            counter.launches = 0
+        got = converted.detect_batch(frames)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    if launches != {'fixed_point_suppress': 1,
+                    'fused_inverted_residual': FUSED_CALLS}:
+        raise AssertionError('converted weights: launches {}'.format(
+            launches))
+    held = _hold_against_plain(calls)
+    want = seeded.detect_batch(frames)
+    torch.cuda.synchronize()
+    _check_detections(got, BATCH, converted.config.max_detections)
+    fields = ('boxes', 'scores', 'classes', 'valid')
+    identical = all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in fields)
+    log('phase8a converted weights [{}]: {} checkpoint variables converted '
+        'in {:.3f} s (no TensorFlow), geometry {}, tree bit-identical; '
+        '.msgpack {} bytes read back by the zoo; detections on {} frames '
+        'of 1920x1080 ({} kept) bit-identical to the seeded detector: {}; '
+        'launches {} a step, fixed_point_suppress at {} bit-identical to '
+        'its plain version, {} fused_inverted_residual launches within '
+        'tolerance'.format(
+            card, len(names), convert_s, geometry, size, BATCH,
+            int(got.valid.sum()), identical, launches,
+            held['fixed_point_suppress'],
+            len(held['fused_inverted_residual'])))
+    if not identical:
+        raise AssertionError('converted weights: detections differ')
+
+
+def phase_timing(device, card):
+    """phase8b: the port's timing and roofline modules. (1)
+    ``measure_production_device_path(batch=32)`` at 1920x1080: detect,
+    filters, pack and overlay captured once as a CUDA graph and replayed,
+    kernel 1 launched WARMUP_STEPS times eagerly and once into the graph;
+    beside it the eager TorchDetectorBackend step wall on the same
+    detector, tables and batch of host frames (H2D included). (2)
+    ``chained_model_runner`` + ``chained_step_ms`` on the main path's
+    detect step at batch BATCH against ``profile_step.graph_ms`` of the
+    same step (a graph of 10 steps): within CHAINED_GRAPH_RTOL. (3) the
+    roofline row of that step from ``step_cost`` on its plain walk
+    (FlopCounterMode cannot see the hand-written kernels; the plain walk
+    runs the same convolutions)."""
+    import torch
+    from watsor_tpu_torch import roofline, timing
+    from watsor_tpu_torch.detection.backend import TorchDetectorBackend
+    from watsor_tpu_torch.ops import nms_fixed_point
+    from watsor_tpu_torch.profile_step import graph_ms
+    from watsor_tpu_torch.workload import (FRAME_HW, build_main_path_detector,
+                                           frames_1080p, step_wall_ms)
+    fp = nms_fixed_point.fixed_point_suppress
+    fp.launches = 0
+    record = timing.measure_production_device_path(
+        batch=PRODUCTION_BATCH, hw=FRAME_HW, n_cameras=PRODUCTION_BATCH,
+        device=device)
+    launches = fp.launches
+    if launches != timing.WARMUP_STEPS + 1:
+        raise AssertionError('production path: {} fixed_point_suppress '
+                             'launches, {} expected'.format(
+                                 launches, timing.WARMUP_STEPS + 1))
+    detector = timing.build_production_detector(device)
+    cameras = ['cam{}'.format(i) for i in range(PRODUCTION_BATCH)]
+    tables = timing.production_tables(FRAME_HW)
+    backend = TorchDetectorBackend(
+        detector, device, camera_tables={c: tables for c in cameras})
+    host = np.random.default_rng(8).integers(
+        0, 256, (PRODUCTION_BATCH,) + FRAME_HW + (3,), np.uint8)
+    wall = step_wall_ms(backend, host, cameras, reps=10)
+    log('phase8b production path [{}]: {}; fixed_point_suppress launches '
+        '{} ({} eager warm-up steps and 1 captured into the graph that the '
+        'replays run); eager TorchDetectorBackend step wall at batch {} of '
+        'host 1920x1080 frames (H2D included) {:.3f} ms, median of 10'
+        .format(card, json.dumps(record), launches, timing.WARMUP_STEPS,
+                PRODUCTION_BATCH, wall))
+    del detector, backend, host
+    torch.cuda.empty_cache()
+
+    walk = build_main_path_detector(device)
+    frames = frames_1080p(device)
+    graph = graph_ms(lambda: walk.detect_batch(frames))
+    run = timing.chained_model_runner(lambda _, x: walk.detect_batch(x),
+                                      None, BATCH, FRAME_HW, device=device)
+    chained, detail = timing.chained_step_ms(run)
+    plain = build_main_path_detector(device, fused=False)
+    flops, nbytes = roofline.step_cost(
+        plain.detect_batch, frames,
+        params=list(plain.model.state_dict().values()))
+    row = roofline.roofline_row('ssd_mobilenet_v2 fused_exact C=2 (main '
+                                'path)', BATCH, chained, flops, nbytes,
+                                device)
+    log('phase8b chained detect step [{}]: batch {} of 1920x1080 frames, '
+        'main path (fused blocks, fused_exact): chained_step_ms {:.4f} ms '
+        '(one captured step replayed; {}) against profile_step.graph_ms '
+        '{:.4f} ms (a graph of 10 steps), ratio {:.4f} (bar 1 +- {})'
+        .format(card, BATCH, chained, json.dumps(detail), graph,
+                chained / graph, CHAINED_GRAPH_RTOL))
+    log('phase8b roofline [{}]: step_cost of the plain walk: {} FLOP '
+        '(FlopCounterMode), {} bytes (floor: frames, outputs, weights); '
+        'row {}'.format(card, flops, nbytes, json.dumps(row)))
+    if abs(chained / graph - 1.0) > CHAINED_GRAPH_RTOL:
+        raise AssertionError('chained {} ms against graph {} ms'.format(
+            chained, graph))
+    if not flops or not nbytes or 'pct_speed_of_light' not in row:
+        raise AssertionError('roofline row without peaks or counts: {}'
+                             .format(row))
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
@@ -1792,7 +1958,11 @@ def main():
          lambda: phase_sharded_train_f64(device), None),
         ('phase7c model-axis fleet', lambda: phase_fleet_model_axis(device),
          None),
-        ('phase7d warmup', lambda: phase_warmup(device), None)]
+        ('phase7d warmup', lambda: phase_warmup(device), None),
+        ('phase8a converted weights',
+         lambda: phase_converted_weights(device, card), None),
+        ('phase8b timing and roofline', lambda: phase_timing(device, card),
+         None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:

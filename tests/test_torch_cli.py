@@ -144,6 +144,32 @@ def test_check_config_reports_as_the_jax_package(tmp_path, capsys, case):
         assert 'WATSOR_FFMPEG_FALLBACK=1' in out
 
 
+@pytest.mark.parametrize('case', ['demo', 'invalid'])
+def test_python_m_check_config_as_the_jax_package(tmp_path, case):
+    """``python -m watsor_tpu_torch --check-config`` (the package's
+    ``__main__``) in a subprocess prints the report and exits with the
+    code of ``python -m watsor_tpu --check-config``."""
+    import subprocess
+    import sys
+    config = CONFIG
+    if case == 'invalid':
+        config = str(tmp_path / 'invalid.yaml')
+        with open(config, 'w') as f:
+            f.write('cameras:\n  - cam1:\n      width: 1\n')
+    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS='cpu')
+
+    def run(package):
+        proc = subprocess.run(
+            [sys.executable, '-m', package, '-c', config, '--check-config'],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        return proc.returncode, proc.stdout
+
+    got, want = run('watsor_tpu_torch'), run('watsor_tpu')
+    assert got == want
+    assert got[0] == (0 if case == 'demo' else 1), got[1]
+    assert ('check-config: OK' if case == 'demo' else 'INVALID') in got[1]
+
+
 # ---- warmup ---------------------------------------------------------------
 
 @pytest.fixture

@@ -422,24 +422,92 @@ def test_model_axis_fleet_matches_jax_and_the_data_only_fleet(
 
 def test_model_axis_fleet_of_other_walks(ssd_pair, effdet_pair):
     """Over a model axis of two: EfficientDet has no kernel the rule splits
-    and runs data-parallel, equal to the data-only fleet; an int8 walk
-    cannot split its heads and says so."""
+    and runs data-parallel, equal to the data-only fleet; so does a
+    weight-only int8 detector, whose kernels are QuantizedLeaf values, as
+    the JAX package's rule leaves them whole. Its adopted replica serves
+    the mesh's rows itself, as it does with ``model_parallel=False``."""
     from watsor_tpu_torch.models.quantize import build_quantized_detector
-    _, port = effdet_pair
     mesh = make_mesh(devices=['cpu'] * 4, model_parallel=2)
-    frames = _frames(12, 4, port.config.input_size)
-    got = _concat(FleetDetector(mesh, port).detect(frames))
-    want = _concat(FleetDetector(make_mesh(devices=['cpu'] * 2),
-                                 port).detect(frames))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
     _, ssd = ssd_pair
     int8 = build_quantized_detector(ssd.config, ssd.variables,
                                     anchors=ssd.anchors, device='cpu')
-    with pytest.raises(ValueError, match='cannot split its head kernels'):
-        FleetDetector(mesh, int8)
+    for port in (effdet_pair[1], int8):
+        frames = _frames(12, 4, port.config.input_size)
+        got = _concat(FleetDetector(mesh, port).detect(frames))
+        want = _concat(FleetDetector(make_mesh(devices=['cpu'] * 2),
+                                     port).detect(frames))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert FleetDetector(mesh, int8).replicas[0] is int8
     assert FleetDetector(mesh, int8, model_parallel=False).replicas[0] \
         is int8
+
+
+@pytest.fixture(scope='module')
+def int8_pair():
+    """(JAX detector, the port's, calibration frames, the JAX absmax) of the
+    width-1.0 SSD-MobileNetV2 the int8 walk covers, at 96x96, 2 classes
+    (cls_head0's 9 channels stay whole at model 2, as the production
+    273-channel head does), f32, ``nms: exact``."""
+    from watsor_tpu.models import ssd_int8 as j_int8
+    cfg = dict(num_classes=2, input_size=SIZE, nms_mode='exact')
+    jax_det, port = _pair(JaxSSD, JaxSSDConfig(dtype=jnp.float32, **cfg),
+                          jax_build_ssd, SSDConfig(dtype=torch.float32, **cfg),
+                          build_detector)
+    calib = _frames(13, 4, SIZE)
+    return jax_det, port, calib, j_int8.calibrate(jax_det, calib)
+
+
+@pytest.mark.parametrize('mode', ['int8', 'int8_full'])
+def test_model_axis_fleet_of_int8_walks(mode, int8_pair, monkeypatch):
+    """Both int8 modes behind FleetDetector at (data 2, model 2), as the
+    JAX package runs them: weight-only int8 splits nothing; int8_full
+    splits its float head kernels whose channels divide the model axis
+    (11 of 12), each slice the dtype-rounded kernel in f32. Each equals
+    the port's data-only fleet bit for bit and the JAX FleetDetector over
+    make_mesh(8, model_parallel=2) at the int8 walk's bars
+    (tests/test_torch_int8.py: valid counts and labels equal, boxes and
+    scores within 5e-3; weight-only int8 at the float fleet's)."""
+    from watsor_tpu.models import quantize as j_quant
+    from watsor_tpu.models import ssd_int8 as j_int8
+    from watsor_tpu.parallel.fleet import FleetDetector as JaxFleetDetector
+    from watsor_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from watsor_tpu_torch.models.quantize import build_quantized_detector
+    from watsor_tpu_torch.models.ssd_int8 import build_int8_detector
+    from watsor_tpu_torch.parallel.heads import SplitHead
+    jax_det, port, calib, absmax = int8_pair
+    if mode == 'int8':
+        jax_q = j_quant.build_quantized_detector(jax_det.config,
+                                                 params=jax_det.params)
+        port_q = build_quantized_detector(port.config, port.variables,
+                                          anchors=port.anchors, device='cpu')
+        tol = BOX_TOL
+    else:
+        monkeypatch.setattr(j_int8, 'calibrate', lambda *args, **kw: absmax)
+        jax_q = j_int8.build_int8_detector(jax_det, calib)
+        port_q = build_int8_detector(port, calib, absmax=absmax)
+        tol = 5e-3
+    calls = []
+    run = SplitHead.__call__
+    monkeypatch.setattr(SplitHead, '__call__',
+                        lambda self, x: calls.append(x.shape) or run(self, x))
+    frames = _frames(14, 4, SIZE)
+    fleet = FleetDetector(make_mesh(devices=['cpu:0', 'cpu'] * 2,
+                                    model_parallel=2), port_q)
+    got = _concat(fleet.detect(frames))
+    assert len(calls) == (0 if mode == 'int8' else 2 * 11)
+    data_only = _concat(FleetDetector(make_mesh(devices=['cpu:0'] * 2),
+                                      port_q).detect(frames))
+    for g, w in zip(got, data_only):
+        np.testing.assert_array_equal(g, w)
+    jax_fleet = JaxFleetDetector(jax_make_mesh(8, model_parallel=2),
+                                 jax_q.config, detector=jax_q)
+    want = [np.asarray(a) for a in jax_fleet.detect(jnp.asarray(frames))]
+    assert int(want[3].sum()) > 0, 'the frames must give detections'
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=tol)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=tol)
 
 
 def test_batch_sharding_splits_into_equal_contiguous_shards():

@@ -272,11 +272,13 @@ def _in_dtype(value, dtype):
 
 
 def build_int8_detector(detector, calibration_images_u8, pointwise=None,
-                        absmax=None):
+                        absmax=None, heads=None):
     """Float detector (the plain model) + calibration frames -> a Detector
     whose detect_batch runs the int8 walk (same output contract).
     ``pointwise`` overrides WATSOR_INT8_POINTWISE; ``absmax`` adopts an
-    earlier calibration instead of running one."""
+    earlier calibration instead of running one; ``heads``: {head name:
+    SplitHead} run in place of those head convolutions (``SSD.forward``'s
+    ``heads``, as the fleet's model axis splits them)."""
     cfg = detector.config
     if detector.model is None:
         raise ValueError('build_int8_detector needs the plain float model')
@@ -294,17 +296,26 @@ def build_int8_detector(detector, calibration_images_u8, pointwise=None,
 
     # heads in the activation dtype, convolved with f32 sums: f32 operands
     # that hold the dtype-rounded values
+    from watsor_tpu_torch.parallel.heads import SplitHead
     params = detector.variables['params']
+    split = heads or {}
     heads = []
     for i in range(len(cfg.extra_features) + 2):
         pair = []
-        for name in ('box_head{}', 'cls_head{}'):
-            p = params[name.format(i)]
+        for name in ('box_head{}'.format(i), 'cls_head{}'.format(i)):
+            p = params[name]
+            bias = torch.from_numpy(np.asarray(p['bias'], np.float32)) \
+                .to(device)
+            if name in split:
+                # the same operands as the unsplit head's, sliced: the
+                # dtype-rounded kernel in f32, the f32 bias
+                pair.append(SplitHead(
+                    [w.to(cfg.dtype).float() for w in split[name].slices],
+                    bias))
+                continue
             weight = torch.from_numpy(np.ascontiguousarray(hwio_to_oihw(
                 np.asarray(p['kernel'], np.float32))))
-            pair.append((weight.to(device, cfg.dtype).float(),
-                         torch.from_numpy(np.asarray(p['bias'], np.float32))
-                         .to(device)))
+            pair.append((weight.to(device, cfg.dtype).float(), bias))
         heads.append(tuple(pair))
     anchors_dev = torch.from_numpy(detector.anchors).to(device)
     x_scale = np.float32(1.0 / 127.0)
@@ -324,5 +335,6 @@ def build_int8_detector(detector, calibration_images_u8, pointwise=None,
         lambda x: x.float() * (2.0 / 255.0) - 1.0)
     return detector._replace(
         model=None, detect_batch=detect_batch, raw_apply=raw_apply,
-        rebuild=lambda device: build_int8_detector(
-            detector.rebuild(device), None, pointwise=mode, absmax=absmax))
+        rebuild=lambda device, heads=None: build_int8_detector(
+            detector.rebuild(device), None, pointwise=mode, absmax=absmax,
+            heads=heads))

@@ -22,7 +22,6 @@ device's AdamW: every replica stays equal bit for bit.
 
 import contextlib
 import copy
-import inspect
 import threading
 
 import numpy as np
@@ -38,8 +37,7 @@ from watsor_tpu_torch.models.weights import (export_variables, hwio_to_oihw,
                                              init_weights, leaves,
                                              load_variables)
 from watsor_tpu_torch.parallel.heads import SplitHead
-from watsor_tpu_torch.parallel.mesh import (MODEL_SHARDED_KERNEL,
-                                            batch_sharding, split_kernels)
+from watsor_tpu_torch.parallel.mesh import batch_sharding, split_kernels
 
 
 def replicate(detector, device, heads=None):
@@ -60,19 +58,19 @@ def replicate(detector, device, heads=None):
 def split_heads(detector, mesh, row, model_parallel=True):
     """{head name: SplitHead} of ``detector``'s head kernels that
     ``param_shardings`` splits over the model axis, their slices on the
-    devices of ``row``, in the detector's dtype, the bias on ``row[0]``."""
+    devices of ``row``, in the detector's dtype, the bias on ``row[0]``.
+    Only a 4-d kernel array splits, as only a 4-d ``kernel`` leaf does in
+    the JAX package: a weight-only int8 detector keeps its kernels as
+    QuantizedLeaf values and scales, so nothing of it splits and it runs
+    data-parallel; the int8_full walk keeps float head kernels, which
+    split."""
     if mesh.model_parallel == 1 or not model_parallel:
         return {}
     params = detector.variables['params']
-    if 'heads' not in inspect.signature(detector.rebuild).parameters:
-        if any(MODEL_SHARDED_KERNEL.search(name) for name in params):
-            raise ValueError('this detector\'s walk (an int8 walk) cannot '
-                             'split its head kernels over a model axis: use '
-                             'a model axis of one or model_parallel=False')
-        return {}
     kernels = {'{}.weight'.format(name): hwio_to_oihw(np.asarray(
         value['kernel'], np.float32)) for name, value in params.items()
-        if isinstance(value, dict) and 'kernel' in value}
+        if isinstance(value, dict) and
+        getattr(value.get('kernel'), 'ndim', 0) == 4}
     dtype = detector.config.dtype
     heads = {}
     for key in split_kernels(mesh, kernels, model_parallel):

@@ -101,13 +101,14 @@ def watched_labels():
 
 
 def build_main_path_detector(device, fused=True, seed=0,
-                             dtype=torch.bfloat16):
+                             dtype=torch.bfloat16, model_path=None):
     """The slice's detector on ``device``: the fused walk, or with
     ``fused=False`` the plain model (convolutions with BatchNorm), its
-    activations in ``dtype``."""
+    activations in ``dtype``; the weights stored under ``model_path``, or
+    without them from ``seed``."""
     from watsor_tpu_torch.models.ssd_fused import build_fused_detector
     from watsor_tpu_torch.models.zoo import build_from_zoo
-    detector = build_from_zoo(MODEL, None, seed=seed,
+    detector = build_from_zoo(MODEL, model_path, seed=seed,
                               active_labels=watched_labels(),
                               nms_mode='fused_exact', dtype=dtype,
                               device=device)
