@@ -108,6 +108,16 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
       harness on the main path's detect step at batch 8 within 10% of
       profile_step's graph time; that step's roofline row;
 
+9. the seeded goldens (testing/golden.py): each of the nine families on
+   the photographs of tests/data/images, its weights the seeded tree
+   rebuilt from numpy alone and read back from ``.msgpack``, built once a
+   leg and NMS mode (``fused``, ``fused_exact``): in f32 with TF32 off
+   against tests/data/goldens_seeded/<family>.<mode>.json at the port's f32
+   bar (1e-5), in the zoo's production bf16 at labels and places, and in
+   f32 with TF32 on, which with the bf16 leg must miss records at the f32
+   bar; kernel 1 once a step on each ``fused_exact`` leg, every launch held
+   bit for bit against its plain version;
+
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
 of JAX, and nothing of the JAX package ``watsor_tpu``, was imported on
@@ -1796,6 +1806,39 @@ def phase_timing(device, card):
                              .format(row))
 
 
+def phase_goldens(device, card):
+    """phase9: every family of testing/golden.py GOLDEN_FAMILIES held to its
+    seeded goldens on the card by ``golden.check_family`` (the f32 leg with
+    TF32 off at the port's f32 bar, the production bf16 leg at labels and
+    places, the f32 leg with TF32 on; each built once a NMS mode; kernel 1
+    once a ``fused_exact`` step; the f32 bar catching both reduced-precision
+    legs), one line a family; every kernel-1 launch of the phase held bit
+    for bit against its plain version. Any problem fails the phase."""
+    from watsor_tpu_torch.testing import golden
+    batch, names = golden.load_photo_batch()
+    stored = golden.load_goldens(golden.seeded_golden_path(
+        golden.GOLDEN_FAMILIES[0], golden.GOLDEN_MODES[0]))['canvas_sha256']
+    digest = golden.canvas_digest(batch)
+    log('phase9 goldens [{}]: photo canvas {} of {}, sha256 {} the stored '
+        'canvas\'s; f32 bar {}'.format(
+            card, list(batch.shape), ', '.join(names),
+            'equals' if digest == stored else 'DIFFERS from',
+            golden.PORT_F32_SCORE_TOL))
+    failed = []
+    for family in golden.GOLDEN_FAMILIES:
+        calls = []
+        with _recorded_kernels(calls):
+            row = golden.check_family(family, batch, names, device)
+        held = _hold_against_plain(calls)['fixed_point_suppress']
+        log('phase9 goldens {} [{}]: {}; {} fixed_point_suppress launches '
+            'held bit for bit at {}'.format(family, card, json.dumps(row),
+                                            len(held), sorted(set(held))))
+        if not row['ok']:
+            failed.append(family)
+    if failed:
+        raise AssertionError('goldens missed: {}'.format(', '.join(failed)))
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
@@ -1962,7 +2005,8 @@ def main():
         ('phase8a converted weights',
          lambda: phase_converted_weights(device, card), None),
         ('phase8b timing and roofline', lambda: phase_timing(device, card),
-         None)]
+         None),
+        ('phase9 goldens', lambda: phase_goldens(device, card), None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:

@@ -18,7 +18,10 @@ The other families follow watsor_tpu/testing/golden.py
 ``build_golden_detector`` in full: f32 and the model's default NMS mode.
 JAX only builds the weight tree (``golden_tree``: ``build_from_zoo``'s
 PRNGKey(0) init, compiled as one program, which gives the same tree); its
-detector does not run.
+detector does not run. The photographs are loaded, and the records made and
+matched, by the port's own harness (watsor_tpu_torch/testing/golden.py),
+whose cv2 canvas tests/test_torch_golden_seeded.py holds to the JAX
+package's.
 """
 
 import os
@@ -34,7 +37,7 @@ from watsor_tpu.models.efficientdet import EfficientDet as JaxEfficientDet
 from watsor_tpu.models.efficientdet import lite_config as jax_lite_config
 from watsor_tpu.models.ssd import SSD as JaxSSD
 from watsor_tpu.models.zoo import MODEL_REGISTRY as JAX_REGISTRY
-from watsor_tpu.testing import golden
+from watsor_tpu_torch.testing import golden
 from watsor_tpu_torch.models.efficientdet import build_effdet
 from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
 from watsor_tpu_torch.models.zoo import model_config
@@ -80,14 +83,7 @@ def _stored(family):
 def golden_problems(family, records, names):
     """The port's records of ``family`` against its stored goldens, as
     match_records lists the mismatches."""
-    stored = _stored(family)
-    problems = []
-    for name in names:
-        expected = stored[name]
-        assert expected, 'stored golden for {} is empty'.format(name)
-        problems += ['[{}] {}'.format(name, p) for p in
-                     golden.match_records(expected, records[name])]
-    return problems
+    return golden.golden_problems(_stored(family), records, names)
 
 
 @pytest.fixture(scope='module')

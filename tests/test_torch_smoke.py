@@ -90,6 +90,35 @@ def test_chip_smoke_reports_nothing_without_a_card(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
+_GOLDEN_CHECK = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from watsor_tpu_torch.testing import golden
+code = golden.main(['check', 'ssd_mobilenet_v2', '--device', 'cpu'])
+print('EXIT', code)
+print('IMPORTED', sorted(m for m in sys.modules if m.split('.')[0] in
+                         ('jax', 'jaxlib', 'flax', 'watsor_tpu')))
+"""
+
+
+def test_the_golden_harness_runs_without_the_jax_package():
+    """``python -m watsor_tpu_torch.testing.golden check`` (its ``main``)
+    on the CPU rebuilds the seeded tree, holds both legs to the stored
+    goldens and prints its row, importing nothing of JAX or of the JAX
+    package on the way."""
+    proc = subprocess.run([sys.executable, '-c', _GOLDEN_CHECK],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-2:] == ['EXIT 0', 'IMPORTED []'], proc.stdout
+    row = json.loads(lines[-3])
+    assert row['family'] == 'ssd_mobilenet_v2' and row['device'] == 'cpu'
+    assert row['ok'] and row['f32']['ok'] and row['bf16_production']['ok'], \
+        row
+
+
 @pytest.mark.cuda
 def test_profile_step_runs_on_the_card(tmp_path):
     """The step profile completes and reports device times (run on the
