@@ -117,6 +117,16 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    f32 with TF32 on, which with the bf16 leg must miss records at the f32
    bar; kernel 1 once a step on each ``fused_exact`` leg, every launch held
    bit for bit against its plain version;
+10. the port's measurement entry points (watsor_tpu_torch/bench.py),
+   one JSON line a leg: ``step`` at batch 32 (10 steps, 3 repetitions;
+   the chained cross-check, the production device path at 1080p with its
+   kernel-1 launches, the roofline row) and ``app`` on 32 synthetic 1080p
+   cameras with 20 s of samples on each of three paths (the default
+   ``fused_exact``; ``WATSOR_FUSED_BLOCKS=1``; ``int8_full`` with
+   ``pallas`` pointwise and ``nms: exact``); each leg's kernel launches
+   counted from 0, and its last launches of each kernel held against the
+   plain versions (kernels 1, 3 and 4 bit for bit, kernel 2 within phase
+   1's tolerances);
 
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
@@ -128,7 +138,8 @@ card, the first visible one. Any failed phase makes the script exit
 non-zero without the final line. Weights are random, from a fixed seed.
 Output: versions, the card, build time, per-phase lines, a JSON line of
 kernel results (each kernel's launches are those of its path's run in
-phase 2), and as the last line ``{"ok": true, "device": {...}}``.
+phase 2; ``launches_by_run`` gives them beside those of each of phase 10's
+legs), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -199,6 +210,19 @@ MODEL_AXIS_PLANES = 16
 # chained harness's step time may lie from profile_step's graph time
 PRODUCTION_BATCH = 32
 CHAINED_GRAPH_RTOL = 0.10
+# phase 10: bench.py's step (batch 32) at fewer steps, and the application
+# at the north-star load for a shorter window, on each path (knobs, nms,
+# the kernels it launches)
+BENCH_STEP_ENV = {'BENCH_STEPS': '10', 'BENCH_REPS': '3'}
+BENCH_APP_CAMERAS = 32
+BENCH_APP_DURATION = 20
+BENCH_APP_PATHS = (
+    ('fused_exact', {}, None, ('fixed_point_suppress',)),
+    ('fused blocks', {'WATSOR_FUSED_BLOCKS': '1'}, None,
+     ('fixed_point_suppress', 'fused_inverted_residual')),
+    ('int8', {'WATSOR_QUANTIZE': 'int8_full',
+              'WATSOR_INT8_POINTWISE': 'pallas'}, 'exact',
+     ('pallas_suppress', 'int8_matmul_requant')))
 
 
 def log(*args):
@@ -973,23 +997,34 @@ def phase_overlay(device):
 
 
 @contextlib.contextmanager
-def _recorded_kernels(calls):
-    """The path's calls of kernels 1 and 2 (as ops/nms.py and
-    models/ssd_fused.py make them) recorded into ``calls`` with a copy of
-    each output: (name, args, kwargs, output). The kernels still run."""
-    from watsor_tpu_torch.models import ssd_fused
+def _recorded_kernels(calls, keep=None):
+    """The path's calls of the four kernels (as ops/nms.py,
+    models/ssd_fused.py and models/ssd_int8.py make them) recorded into
+    ``calls`` with a copy of each output: (name, args, kwargs, output). The
+    kernels still run. With ``keep``, each kernel's last ``keep`` launches
+    only (a long run's inputs would fill the card)."""
+    import collections
+    from watsor_tpu_torch.models import ssd_fused, ssd_int8
     from watsor_tpu_torch.ops import nms
+    recent = collections.defaultdict(
+        lambda: collections.deque(maxlen=keep))
 
     def recorder(wrapper):
         def record(*args, **kwargs):
             out = wrapper(*args, **kwargs)
-            calls.append((wrapper.__name__, args, kwargs, out.clone()))
+            entry = (wrapper.__name__, args, kwargs, out.clone())
+            if keep is None:
+                calls.append(entry)
+            else:
+                recent[wrapper.__name__].append(entry)
             return out
         return record
 
     saved = [(module, name, getattr(module, name)) for module, name in (
         (nms, 'fixed_point_suppress'),
-        (ssd_fused, 'fused_inverted_residual'))]
+        (ssd_fused, 'fused_inverted_residual'),
+        (nms, 'pallas_suppress'),
+        (ssd_int8, 'int8_matmul_requant'))]
     for module, name, wrapper in saved:
         setattr(module, name, recorder(wrapper))
     try:
@@ -997,30 +1032,36 @@ def _recorded_kernels(calls):
     finally:
         for module, name, wrapper in saved:
             setattr(module, name, wrapper)
+        for entries in recent.values():
+            calls.extend(entries)
 
 
 def _hold_against_plain(calls):
     """Each recorded launch against its plain version on its own inputs:
-    kernel 1 bit for bit, kernel 2 within phase 1's tolerances. Returns the
-    shapes held, by kernel."""
+    kernels 1, 3 and 4 bit for bit, kernel 2 within phase 1's tolerances.
+    Returns the shapes held, by kernel."""
     import torch
-    from watsor_tpu_torch.ops import fused_block, nms_fixed_point
+    from watsor_tpu_torch.ops import (fused_block, int8_matmul,
+                                      nms_fixed_point, nms_suppress)
     plain = {'fixed_point_suppress':
              nms_fixed_point.fixed_point_suppress_plain,
              'fused_inverted_residual':
-             fused_block.fused_inverted_residual_plain}
+             fused_block.fused_inverted_residual_plain,
+             'pallas_suppress': nms_suppress.pallas_suppress_plain,
+             'int8_matmul_requant': int8_matmul.int8_matmul_requant_plain}
     shapes = {name: [] for name in plain}
+    torch.cuda.synchronize()
     for name, args, kwargs, got in calls:
         want = plain[name](*args, **kwargs)
         torch.cuda.synchronize()
         shape = tuple(args[0].shape)
         shapes[name].append(shape)
-        if name == 'fixed_point_suppress':
+        if name != 'fused_inverted_residual':
             if not torch.equal(got, want):
                 raise AssertionError(
-                    'fixed_point_suppress {}: {} of {} keep bits differ from '
-                    'the plain version'.format(shape, int((got != want).sum()),
-                                               got.numel()))
+                    '{} {}: {} of {} outputs differ from the plain version'
+                    .format(name, shape, int((got != want).sum()),
+                            got.numel()))
             continue
         diff = (got.float() - want.float()).abs()
         if bool((diff > FUSED_ATOL + FUSED_RTOL * want.float().abs()).any()) \
@@ -1839,6 +1880,82 @@ def phase_goldens(device, card):
         raise AssertionError('goldens missed: {}'.format(', '.join(failed)))
 
 
+def phase_bench(device, card, launches):
+    """phase10: the port's measurement entry points (watsor_tpu_torch/
+    bench.py) on the card, one JSON line a leg, each leg's launches of the
+    four kernels counted from 0 and added to ``launches`` (by kernel, then
+    by leg), and the launches recorded in the leg (each kernel's last
+    INT8_CALLS) held against their plain versions. ``step`` at batch 32
+    (BENCH_STEPS=10, BENCH_REPS=3): kernel 1 only in its device-path leg
+    (timing.WARMUP_STEPS eager steps and one captured into the graph);
+    ``app`` at BENCH_APP_CAMERAS synthetic 1080p cameras and
+    BENCH_APP_DURATION s of samples on each path of BENCH_APP_PATHS, with
+    its kernels. Any failed leg fails the phase."""
+    import torch
+    from watsor_tpu_torch import bench, timing
+    from watsor_tpu_torch.io import native
+    from watsor_tpu_torch.ops import (fused_block, int8_matmul,
+                                      nms_fixed_point, nms_suppress)
+    counters = (nms_fixed_point.fixed_point_suppress,
+                fused_block.fused_inverted_residual,
+                nms_suppress.pallas_suppress,
+                int8_matmul.int8_matmul_requant)
+    # the knobs earlier phases left set, cleared for every leg
+    cleared = {k: None for k in (
+        'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS', 'WATSOR_QUANTIZE',
+        'WATSOR_INT8_POINTWISE', 'WATSOR_DEVICE_RENDER', 'WATSOR_MIN_BUCKET',
+        'WATSOR_DEVICE_POOL', 'WATSOR_MODEL', 'TRT_FLOAT_PRECISION',
+        'BENCH_BATCH', 'BASELINE5_CAP', 'BASELINE5_OUT')}
+
+    def leg(name, env, run, expected):
+        calls = []
+        for counter in counters:
+            counter.launches = 0
+        with bench.scoped_environ(dict(cleared, **env)), \
+                _recorded_kernels(calls, keep=INT8_CALLS):
+            record = run()
+        torch.cuda.synchronize()
+        counts = {c.__name__: c.launches for c in counters}
+        held = {k: len(v) for k, v in _hold_against_plain(calls).items()
+                if v}
+        log(json.dumps({'phase': 'phase10', 'leg': name, 'card': card,
+                        'launches': counts, 'held': held,
+                        'record': record}))
+        for kernel, n in counts.items():
+            launches.setdefault(kernel, {})['phase10 ' + name] = n
+        missing = [k for k in expected if not counts[k] or not held.get(k)]
+        if missing:
+            raise AssertionError('{}: {} not launched or not held'.format(
+                name, ', '.join(missing)))
+        return record, counts
+
+    record, counts = leg('step', BENCH_STEP_ENV,
+                         lambda: bench.run_step(device),
+                         ('fixed_point_suppress',))
+    if counts['fixed_point_suppress'] != timing.WARMUP_STEPS + 1:
+        raise AssertionError('step: {} fixed_point_suppress launches, {} '
+                             'expected'.format(counts['fixed_point_suppress'],
+                                               timing.WARMUP_STEPS + 1))
+    if record['device_path']['source'] != 'measured this run' or \
+            'chained_fps' not in record or \
+            'pct_speed_of_light' not in record or \
+            not record['device'].startswith(torch.cuda.get_device_name(0)):
+        raise AssertionError('step record incomplete: {}'.format(record))
+    for path, env, nms, expected in BENCH_APP_PATHS:
+        env = dict(env, BASELINE5_CAMERAS=str(BENCH_APP_CAMERAS),
+                   BASELINE5_DURATION=str(BENCH_APP_DURATION),
+                   BASELINE5_PORT=str(_free_port()),
+                   BASELINE5_WARM_DEADLINE='300')
+        record, _ = leg('app ' + path, env,
+                        lambda: bench.run_app(device, nms=nms), expected)
+        if not record['latency_ms_p50'] <= record['latency_ms_p95']:
+            raise AssertionError('app {}: p50 above p95'.format(path))
+        if not native.available() and (record['encoder_fps'] is not None or
+                                       not record['notes']):
+            raise AssertionError('app {}: the encoder without libav is not '
+                                 'noted'.format(path))
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
@@ -1888,11 +2005,8 @@ def main():
     device = torch.device('cuda', 0)
     log('python {}, torch {}, CUDA {}'.format(
         sys.version.split()[0], torch.__version__, torch.version.cuda))
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
-        else 'nvidia-smi: {}'.format(smi.stderr.strip())
+    from watsor_tpu_torch.workload import card_label
+    card = card_label(device)
     log(card)
 
     failures = []
@@ -1918,7 +2032,7 @@ def main():
                                            build_main_path_detector,
                                            calibration_frames)
     results = []
-    state = {'launches': {}}
+    state = {'launches': {}, 'bench': {}}
 
     def main_path():
         state['detector'], launches, batches = phase_pipeline(
@@ -2006,7 +2120,9 @@ def main():
          lambda: phase_converted_weights(device, card), None),
         ('phase8b timing and roofline', lambda: phase_timing(device, card),
          None),
-        ('phase9 goldens', lambda: phase_goldens(device, card), None)]
+        ('phase9 goldens', lambda: phase_goldens(device, card), None),
+        ('phase10 bench',
+         lambda: phase_bench(device, card, state['bench']), None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:
@@ -2033,14 +2149,19 @@ def main():
     if failures:
         log('chip_smoke: failed phases: {}'.format(', '.join(failures)))
         return 1
-    # each kernel's launches in its own path's run (phase 2)
+    # each kernel's launches in its own path's run (phase 2); beside them,
+    # by run, those of the bench's legs (phase 10), counted from 0 before
+    # each run
     for entry in results:
         entry['launches'] = state['launches'][entry['name']]
+        entry['launches_by_run'] = dict(
+            {'phase2': entry['launches']}, **state['bench'][entry['name']])
     log(json.dumps({'kernels': [
         {key: entry[key] for key in ('name', 'route', 'source', 'replaces',
-                                     'launches', 'max_abs_err', 'ms',
-                                     'plain_ms', 'bound_ms', 'bound_by',
-                                     'library_ms')} for entry in results]}))
+                                     'launches', 'launches_by_run',
+                                     'max_abs_err', 'ms', 'plain_ms',
+                                     'bound_ms', 'bound_by', 'library_ms')}
+        for entry in results]}))
     count = torch.cuda.device_count()
     if count != 1:
         log('chip_smoke: {} cards visible, the run used one'.format(count))

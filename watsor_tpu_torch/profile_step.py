@@ -1,6 +1,6 @@
 """Step profile of the port's main path on one CUDA card.
 
-    python -m watsor_tpu_torch.profile_step [--path main|int8|nms|fleet|train]
+    python -m watsor_tpu_torch.profile_step [--path main|int8|nms|fleet|train|app]
                                             [--mesh DxM]
                                             [--model NAME[,NAME...]]
                                             [--min-blocks 132,264]
@@ -17,7 +17,13 @@ walk with ``nms: fused_exact``; ``--path int8`` the int8 walk
 fleet and the device overlay on every visible card; ``--path train`` the
 full-width train step (``profile_train``), with ``--mesh DxM`` the sharded
 step over a data x model mesh of the visible cards
-(``profile_sharded_train``):
+(``profile_sharded_train``); ``--path app`` the application under
+``python -m watsor_tpu_torch.bench app`` (``profile_app``: BASELINE5_*
+as there, 32 cameras of 1080p by default), with two 5 s windows once it is
+warm: the detector's steps (batches served, a step's cycle) and its
+task's time by part (staging frames, dispatch, the wait for the device,
+the rest of resolve, scattering results, the rest) beside the process's
+CPU time, then the card's busy share under torch.profiler:
 
 - the forward of the plain bf16 model (convolutions with BatchNorm) and of
   the path's walk, as device time (CUDA-graph replay, which leaves out the
@@ -85,7 +91,8 @@ import ctypes
 import json
 import os
 import statistics
-import subprocess
+import sys
+import threading
 import time
 from collections import defaultdict
 
@@ -103,8 +110,8 @@ from watsor_tpu_torch.workload import (BATCH, FRAME_HW, FUSED_SHAPES, Bound,
                                        build_int8_path_detector,
                                        build_main_path_detector,
                                        calibration_frames, camera_filters,
-                                       cudnn_block, int8_call_work,
-                                       int_mm_operand)
+                                       card_label, cudnn_block,
+                                       int8_call_work, int_mm_operand)
 
 
 def wall_ms(fn, n):
@@ -415,6 +422,171 @@ def device_summary(prof, steps, wall, label, top=12):
             'busy_share': busy / 1e3 / wall,
             'device_events_per_step': len(spans) / steps,
             'top_kernels': kernels}
+
+
+class StepClock:
+    """The detector task's time by part while ``on`` is set:
+    ``ObjectDetector._stage`` (one frame copied into the staging batch),
+    TorchDetectorBackend's ``dispatch`` (the pinned copy, H2D and the
+    step's launches), its ``resolve`` as the wait for the step's event and
+    the rest (the D2H copy, unpacking, the zone refinement), and
+    ``ObjectDetector._scatter`` (a step's results into its frames'
+    headers); and a row a step: when it was dispatched, its frames, its
+    padded batch."""
+
+    PARTS = ('stage', 'dispatch', 'wait', 'finish', 'scatter')
+
+    def __init__(self):
+        self.on = threading.Event()
+        self._lock = threading.Lock()
+        self._saved = []
+        self._steps, self._parts = [], defaultdict(list)
+
+    def window(self, seconds):
+        """(steps, {part: [ms a call]}) of the next ``seconds`` s."""
+        with self._lock:
+            self._steps, self._parts = [], defaultdict(list)
+        self.on.set()
+        time.sleep(seconds)
+        self.on.clear()
+        with self._lock:
+            return sorted(self._steps), dict(self._parts)
+
+    def _add(self, part, t0, t1):
+        if self.on.is_set():
+            with self._lock:
+                self._parts[part].append((t1 - t0) * 1e3)
+
+    def _patch(self, cls, name, wrap):
+        original = getattr(cls, name)
+        self._saved.append((cls, name, original))
+        setattr(cls, name, wrap(original))
+
+    def __enter__(self):
+        from watsor_tpu_torch.detection.detector import ObjectDetector
+
+        def timed(part):
+            def wrap(original):
+                def run(*args, **kwargs):
+                    t0 = time.perf_counter()
+                    out = original(*args, **kwargs)
+                    self._add(part, t0, time.perf_counter())
+                    return out
+                return run
+            return wrap
+
+        def dispatch(original):
+            def run(backend, images_u8, senders=None):
+                t0 = time.perf_counter()
+                handle = original(backend, images_u8, senders=senders)
+                self._add('dispatch', t0, time.perf_counter())
+                if self.on.is_set():
+                    with self._lock:
+                        self._steps.append((t0, images_u8.shape[0],
+                                            handle[0].shape[0]))
+                return handle
+            return run
+
+        def resolve(original):
+            def run(backend, handle):
+                t0 = time.perf_counter()
+                if handle[1] is not None:
+                    handle[1].synchronize()
+                t1 = time.perf_counter()
+                out = original(backend, handle)
+                self._add('wait', t0, t1)
+                self._add('finish', t1, time.perf_counter())
+                return out
+            return run
+
+        self._patch(ObjectDetector, '_stage', timed('stage'))
+        self._patch(ObjectDetector, '_scatter', timed('scatter'))
+        self._patch(TorchDetectorBackend, 'dispatch', dispatch)
+        self._patch(TorchDetectorBackend, 'resolve', resolve)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, original in reversed(self._saved):
+            setattr(cls, name, original)
+        self._saved = []
+
+
+def step_split(steps, parts, seconds):
+    """One StepClock window of ``seconds`` s: the batches served, a step's
+    cycle (dispatch to the next dispatch), each part's ms a call (``stage``
+    a frame, the others a step; median and p95) and its share of the
+    window; ``other`` is the rest of the detector task's time (gathering
+    frames from the queue, the loop's own Python)."""
+    def q(values, pct):
+        return round(float(np.percentile(values, pct)), 3) if values \
+            else None
+
+    frames = [n for _, n, _ in steps]
+    cycles = [(b[0] - a[0]) * 1e3 for a, b in zip(steps, steps[1:])]
+    buckets = defaultdict(int)
+    for _, _, bucket in steps:
+        buckets[bucket] += 1
+    split = {'steps': len(steps),
+             'frames_per_s': round(sum(frames) / seconds, 1),
+             'batch_mean': round(float(np.mean(frames)), 2)
+             if frames else None,
+             'batch_min': min(frames, default=None),
+             'batch_max': max(frames, default=None),
+             'buckets': dict(sorted(buckets.items())),
+             'cycle_ms': [q(cycles, 50), q(cycles, 95)]}
+    shares = {}
+    for part in StepClock.PARTS:
+        values = parts.get(part, [])
+        split[part + '_ms'] = [q(values, 50), q(values, 95)]
+        shares[part] = round(sum(values) / 1e3 / seconds, 4)
+    shares['other'] = round(1.0 - sum(shares.values()), 4)
+    split['shares'] = shares
+    return split
+
+
+def profile_app(device, results, window_s=5.0, at_sample=2):
+    """``bench app`` (its BASELINE5_* settings; the path by the service's
+    knobs) with two windows of ``window_s`` s at its ``at_sample``-th
+    /metrics sample: the detector task's time by StepClock
+    (``step_split``) beside the process's CPU time, then the same under
+    torch.profiler on the card (the device's busy share, events a step,
+    top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from watsor_tpu_torch import bench
+    clock = StepClock()
+    samples = []
+
+    def summarize(metrics):
+        samples.append(None)
+        if len(samples) == at_sample:
+            cpu, t0 = time.process_time(), time.perf_counter()
+            split = step_split(*clock.window(window_s), window_s)
+            split.update(
+                process_cpu_cores=round((time.process_time() - cpu) /
+                                        (time.perf_counter() - t0), 3),
+                threads=threading.active_count(),
+                switch_interval_ms=sys.getswitchinterval() * 1e3)
+            results['app_steps'] = split
+            print('app, {:.0f} s: {}'.format(window_s, json.dumps(split)),
+                  flush=True)
+            with profile(activities=[ProfilerActivity.CUDA
+                                     if device.type == 'cuda'
+                                     else ProfilerActivity.CPU]) as prof:
+                t0 = time.perf_counter()
+                steps, parts = clock.window(window_s)
+                wall = (time.perf_counter() - t0) * 1e3
+            results['app_profile'] = device_summary(
+                prof, max(len(steps), 1), wall, 'app')
+            results['app_profile']['steps_under_profiler'] = step_split(
+                steps, parts, window_s)
+        return bench.aggregate(metrics)
+
+    with clock:
+        record = bench.run_app(device, summarize=summarize)
+    if 'app_profile' not in results:
+        raise RuntimeError('the app ended before sample {}'.format(at_sample))
+    results['app'] = {k: v for k, v in record.items() if k != 'samples'}
+    print('app: {}'.format(json.dumps(results['app'])), flush=True)
 
 
 def profile_fleet(device, results, steps, pool_only=False):
@@ -1272,12 +1444,13 @@ def profile_nms(device, results, baseline=None):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--path',
-                        choices=('main', 'int8', 'nms', 'fleet', 'train'),
+                        choices=('main', 'int8', 'nms', 'fleet', 'train',
+                                 'app'),
                         default='main',
                         help='the main path (fused walk), the int8 path, '
                              'the two suppression kernels alone, the '
-                             'fleet and the device overlay, or the train '
-                             'step')
+                             'fleet and the device overlay, the train '
+                             'step, or the application under bench app')
     parser.add_argument('--model', default=None,
                         help='instead of a path, profile these families of '
                              'the zoo (comma list; "all" for every family '
@@ -1311,10 +1484,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device('cuda', 0)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0] if smi else 'nvidia-smi printed nothing'
+    card = card_label(device)
     print(card, flush=True)
     print('torch {}, CUDA {}'.format(torch.__version__, torch.version.cuda),
           flush=True)
@@ -1328,9 +1498,11 @@ def main(argv=None):
             torch.cuda.empty_cache()
         print(json.dumps(results), flush=True)
         return
-    if args.path in ('nms', 'fleet', 'train'):
+    if args.path in ('nms', 'fleet', 'train', 'app'):
         if args.path == 'nms':
             profile_nms(device, results, args.baseline)
+        elif args.path == 'app':
+            profile_app(device, results)
         elif args.path == 'train' and args.mesh:
             results['cards'] = torch.cuda.device_count()
             profile_sharded_train(results, args.steps, args.mesh)

@@ -33,6 +33,7 @@ mesh (``build_sharded_train``), TRAIN_BATCH images a card.
 import contextlib
 import os
 import statistics
+import subprocess
 import time
 
 import numpy as np
@@ -94,6 +95,25 @@ class Bound:
         entry['bound_ms'] = self.ms
         entry['bound_by'] = 'bytes' if self.bytes_ms >= self.ops_ms \
             else 'operations'
+
+
+def card_label(device):
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (its
+    first card), or the torch device for the CPU."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return str(device)
+    name = torch.cuda.get_device_name(device)
+    try:
+        smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                              '--format=csv,noheader'], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as exc:
+        return '{} (power limit not read: {})'.format(name, exc)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else '{} (power limit not read: {})'.format(
+        name, smi.stderr.strip())
 
 
 def watched_labels():
