@@ -127,6 +127,21 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    counted from 0, and its last launches of each kernel held against the
    plain versions (kernels 1, 3 and 4 bit for bit, kernel 2 within phase
    1's tolerances);
+11. the measurement legs of watsor_tpu_torch/measure/ (``bench host``,
+   ``nms``, ``int8``, ``overlap``, ``models``, ``overlay``, ``restart``),
+   one JSON line a leg, at fewer steps: the host stages alone (the
+   detector's scatter among them); the detect step under each NMS mode at
+   C = 90 and C = 2, batch 32, dispatch loop and chained, with kernel 1
+   (``fused_exact``) and kernel 3 (``exact``) launched at both class
+   counts; bf16 against ``int8_full`` in each pointwise mode (kernel 4
+   under ``pallas``), each mode's scores within cosine 0.95 of the bf16
+   step's; the backend's transfer against its step at batches 8 and 32;
+   the roofline row and chained time of ssd_mobilenet_v2 and
+   efficientdet_lite4; the overlay at 16 x 1080p; and two child processes
+   over one new kernel build directory, the first building the four
+   kernels and the second finding them. Each leg's kernel launches are
+   counted from 0 and its last ones held against the plain versions as in
+   phase 10;
 
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
@@ -138,8 +153,8 @@ card, the first visible one. Any failed phase makes the script exit
 non-zero without the final line. Weights are random, from a fixed seed.
 Output: versions, the card, build time, per-phase lines, a JSON line of
 kernel results (each kernel's launches are those of its path's run in
-phase 2; ``launches_by_run`` gives them beside those of each of phase 10's
-legs), and as the last line ``{"ok": true, "device": {...}}``.
+phase 2; ``launches_by_run`` gives them beside those of each leg of phases
+10 and 11), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -223,6 +238,27 @@ BENCH_APP_PATHS = (
     ('int8', {'WATSOR_QUANTIZE': 'int8_full',
               'WATSOR_INT8_POINTWISE': 'pallas'}, 'exact',
      ('pallas_suppress', 'int8_matmul_requant')))
+# phase 11: the measurement legs at fewer steps and shorter chains (the
+# dispatch loop's steps; the chained harness's two loop lengths)
+MEASURE_STEP_ENV = {'BENCH_BATCH': '32', 'BENCH_STEPS': '5', 'N_SHORT': '2',
+                    'N_LONG': '8'}
+MEASURE_OVERLAP_BATCHES = (8, 32)
+MEASURE_MODELS = ('ssd_mobilenet_v2', 'efficientdet_lite4')
+MEASURE_OVERLAY = (16, 1080, 1920)
+# the kernel launches of bench nms by (kernel, shape): kernel 1 under
+# fused_exact and kernel 3 under exact, at C = 90 and C = 2
+MEASURE_NMS_SHAPES = {
+    'fixed_point_suppress': ((32, 90, 128), (32, 2, 128)),
+    'pallas_suppress': ((32, 90, 100, 4), (32, 2, 100, 4))}
+# the knobs earlier phases left set, cleared for every bench leg
+BENCH_CLEARED = (
+    'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS', 'WATSOR_QUANTIZE',
+    'WATSOR_INT8_POINTWISE', 'WATSOR_DEVICE_RENDER', 'WATSOR_MIN_BUCKET',
+    'WATSOR_DEVICE_POOL', 'WATSOR_MODEL', 'TRT_FLOAT_PRECISION',
+    'BENCH_BATCH', 'BENCH_STEPS', 'BASELINE5_CAP', 'BASELINE5_OUT',
+    'N_SHORT', 'N_LONG', 'WATSOR_FUSED_HEADS',
+    'HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'OVERLAP_RESULTS',
+    'ROOFLINE_OUT', 'VALIDATE_OUT', 'WARM_RESTART_OUT')
 
 
 def log(*args):
@@ -1880,54 +1916,57 @@ def phase_goldens(device, card):
         raise AssertionError('goldens missed: {}'.format(', '.join(failed)))
 
 
-def phase_bench(device, card, launches):
-    """phase10: the port's measurement entry points (watsor_tpu_torch/
-    bench.py) on the card, one JSON line a leg, each leg's launches of the
-    four kernels counted from 0 and added to ``launches`` (by kernel, then
-    by leg), and the launches recorded in the leg (each kernel's last
-    INT8_CALLS) held against their plain versions. ``step`` at batch 32
-    (BENCH_STEPS=10, BENCH_REPS=3): kernel 1 only in its device-path leg
-    (timing.WARMUP_STEPS eager steps and one captured into the graph);
-    ``app`` at BENCH_APP_CAMERAS synthetic 1080p cameras and
-    BENCH_APP_DURATION s of samples on each path of BENCH_APP_PATHS, with
-    its kernels. Any failed leg fails the phase."""
+def _bench_leg(phase, name, env, run, expected, launches, card):
+    """One leg of the bench (phases 10 and 11): ``run()`` under ``env``
+    (BENCH_CLEARED cleared besides), its launches of the four kernels
+    counted from 0 and added to ``launches`` (by kernel, then by leg), each
+    kernel's last INT8_CALLS launches recorded and held against their plain
+    versions. Fails if a kernel of ``expected`` was not launched or not
+    held. Returns (record, launches by kernel, shapes held by kernel)."""
     import torch
-    from watsor_tpu_torch import bench, timing
-    from watsor_tpu_torch.io import native
+    from watsor_tpu_torch.measure import scoped_environ
     from watsor_tpu_torch.ops import (fused_block, int8_matmul,
                                       nms_fixed_point, nms_suppress)
     counters = (nms_fixed_point.fixed_point_suppress,
                 fused_block.fused_inverted_residual,
                 nms_suppress.pallas_suppress,
                 int8_matmul.int8_matmul_requant)
-    # the knobs earlier phases left set, cleared for every leg
-    cleared = {k: None for k in (
-        'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS', 'WATSOR_QUANTIZE',
-        'WATSOR_INT8_POINTWISE', 'WATSOR_DEVICE_RENDER', 'WATSOR_MIN_BUCKET',
-        'WATSOR_DEVICE_POOL', 'WATSOR_MODEL', 'TRT_FLOAT_PRECISION',
-        'BENCH_BATCH', 'BASELINE5_CAP', 'BASELINE5_OUT')}
+    calls = []
+    for counter in counters:
+        counter.launches = 0
+    with scoped_environ(dict(dict.fromkeys(BENCH_CLEARED), **env)), \
+            _recorded_kernels(calls, keep=INT8_CALLS):
+        record = run()
+    torch.cuda.synchronize()
+    counts = {c.__name__: c.launches for c in counters}
+    shapes = {k: v for k, v in _hold_against_plain(calls).items() if v}
+    held = {k: len(v) for k, v in shapes.items()}
+    log(json.dumps({'phase': phase, 'leg': name, 'card': card,
+                    'launches': counts, 'held': held, 'record': record}))
+    for kernel, n in counts.items():
+        launches.setdefault(kernel, {})['{} {}'.format(phase, name)] = n
+    missing = [k for k in expected if not counts[k] or not held.get(k)]
+    if missing:
+        raise AssertionError('{}: {} not launched or not held'.format(
+            name, ', '.join(missing)))
+    return record, counts, shapes
+
+
+def phase_bench(device, card, launches):
+    """phase10: the port's measurement entry points (watsor_tpu_torch/
+    bench.py) on the card, one JSON line a leg (``_bench_leg``). ``step``
+    at batch 32 (BENCH_STEPS=10, BENCH_REPS=3): kernel 1 only in its
+    device-path leg (timing.WARMUP_STEPS eager steps and one captured into
+    the graph); ``app`` at BENCH_APP_CAMERAS synthetic 1080p cameras and
+    BENCH_APP_DURATION s of samples on each path of BENCH_APP_PATHS, with
+    its kernels. Any failed leg fails the phase."""
+    import torch
+    from watsor_tpu_torch import bench, timing
+    from watsor_tpu_torch.io import native
 
     def leg(name, env, run, expected):
-        calls = []
-        for counter in counters:
-            counter.launches = 0
-        with bench.scoped_environ(dict(cleared, **env)), \
-                _recorded_kernels(calls, keep=INT8_CALLS):
-            record = run()
-        torch.cuda.synchronize()
-        counts = {c.__name__: c.launches for c in counters}
-        held = {k: len(v) for k, v in _hold_against_plain(calls).items()
-                if v}
-        log(json.dumps({'phase': 'phase10', 'leg': name, 'card': card,
-                        'launches': counts, 'held': held,
-                        'record': record}))
-        for kernel, n in counts.items():
-            launches.setdefault(kernel, {})['phase10 ' + name] = n
-        missing = [k for k in expected if not counts[k] or not held.get(k)]
-        if missing:
-            raise AssertionError('{}: {} not launched or not held'.format(
-                name, ', '.join(missing)))
-        return record, counts
+        return _bench_leg('phase10', name, env, run, expected, launches,
+                          card)[:2]
 
     record, counts = leg('step', BENCH_STEP_ENV,
                          lambda: bench.run_step(device),
@@ -1954,6 +1993,105 @@ def phase_bench(device, card, launches):
                                        not record['notes']):
             raise AssertionError('app {}: the encoder without libav is not '
                                  'noted'.format(path))
+
+
+def phase_measure(device, card, launches):
+    """phase11: the measurement legs of watsor_tpu_torch/measure/ (``bench
+    host|nms|int8|overlap|models|overlay|restart``) on the card at fewer
+    steps, one JSON line a leg (``_bench_leg``): ``nms`` launches kernel 1
+    under fused_exact and kernel 3 under exact at C = 90 and C = 2,
+    ``int8`` kernel 4 under its pallas mode (every mode's scores within
+    cosine INT8_MIN_COSINE of the bf16 step's, and after the leg each
+    mode's raw outputs within it of the f32 plain model's, as phase 2);
+    ``restart``'s cold child
+    builds the four kernels and its restart child finds them. Any failed
+    leg fails the phase."""
+    from watsor_tpu_torch.measure import (host_budget, int8_full, nms_modes,
+                                          overlap, overlay, roofline_table,
+                                          warm_restart)
+
+    def leg(name, env, run, expected=()):
+        return _bench_leg('phase11', name, env, run, expected, launches,
+                          card)
+
+    # first: the MQTT stages' keep-alive threads end within a minute
+    record, _, _ = leg('host', {}, lambda: host_budget.measure(device,
+                                                               log=log))
+    stages = record['per_stage_ms_per_frame']
+    if not all(v > 0 for v in stages.values()) or \
+            list(stages) != list(host_budget.STAGES):
+        raise AssertionError('host: stages {}'.format(stages))
+
+    record, _, shapes = leg(
+        'nms', MEASURE_STEP_ENV, lambda: nms_modes.measure(device, log=log),
+        tuple(MEASURE_NMS_SHAPES))
+    by_shape = {k: {str(shape): v.count(shape) for shape in set(v)}
+                for k, v in shapes.items()}
+    log(json.dumps({'phase': 'phase11', 'leg': 'nms',
+                    'launches_by_shape': by_shape}))
+    for kernel, wanted in MEASURE_NMS_SHAPES.items():
+        for shape in wanted:
+            if shape not in shapes.get(kernel, []):
+                raise AssertionError('nms: {} not launched at {}'.format(
+                    kernel, shape))
+    if len(record['active']) != 6 or not all(
+            row['ms'] > 0 and row['chained_ms_per_step'] > 0
+            for row in record['active'].values()):
+        raise AssertionError('nms record incomplete: {}'.format(record))
+
+    quantized = []
+    record, _, _ = leg('int8', MEASURE_STEP_ENV,
+                       lambda: int8_full.measure(
+                           device, log=log,
+                           built=lambda m, q: quantized.append((m, q))),
+                       ('int8_matmul_requant',))
+    # bench_int8_full.py's bar; with seeded random weights the kept scores
+    # are all near one value and it reads about 1 whatever the walk computes
+    low = {m: record[m]['scores_cosine_vs_bf16'] for m in int8_full.MODES
+           if record[m]['scores_cosine_vs_bf16'] < INT8_MIN_COSINE}
+    if low:
+        raise AssertionError('int8: scores cosine under {}: {}'.format(
+            INT8_MIN_COSINE, low))
+    # the bar that tells a wrong walk: each mode's raw outputs against the
+    # f32 plain model's, as phase 2 holds the pallas path's (after the leg,
+    # so its launches are neither counted nor held)
+    for mode, qdetector in quantized:
+        log('int8 leg, mode {}:'.format(mode))
+        phase_int8_reference(device, qdetector)
+    del quantized
+
+    record, _, _ = leg('overlap', {}, lambda: overlap.measure(
+        device, batches=MEASURE_OVERLAP_BATCHES, log=log))
+    if [r['batch'] for r in record['rows']] != \
+            list(MEASURE_OVERLAP_BATCHES) or \
+            record['marginal_ms_per_frame'] is None:
+        raise AssertionError('overlap record incomplete: {}'.format(record))
+
+    record, _, _ = leg('models', MEASURE_STEP_ENV,
+                       lambda: roofline_table.measure(
+                           device, names=MEASURE_MODELS, log=log))
+    for name in MEASURE_MODELS:
+        row = record['models'][name]
+        if 'pct_speed_of_light' not in row or \
+                not row['chained_ms_per_step'] > 0:
+            raise AssertionError('models: {} incomplete: {}'.format(
+                name, row))
+
+    record, _, _ = leg('overlay', {}, lambda: overlay.measure(
+        device, *MEASURE_OVERLAY, log=log))
+    if not record['frames_per_s'] > 0:
+        raise AssertionError('overlay: {}'.format(record))
+
+    record, _, _ = leg('restart', {},
+                       lambda: warm_restart.measure(device, log=log))
+    cold, warm = record['cold']['kernels'], record['restart']['kernels']
+    if len(cold) != 4 or None in cold.values() or \
+            set(warm) != set(cold) or any(v is not None
+                                          for v in warm.values()) or \
+            record['cache_entries'] < 4:
+        raise AssertionError('restart: the cold leg must build the four '
+                             'kernels and the restart leg find them: {}'
+                             .format(record))
 
 
 def _jax_modules():
@@ -2122,7 +2260,9 @@ def main():
          None),
         ('phase9 goldens', lambda: phase_goldens(device, card), None),
         ('phase10 bench',
-         lambda: phase_bench(device, card, state['bench']), None)]
+         lambda: phase_bench(device, card, state['bench']), None),
+        ('phase11 measure',
+         lambda: phase_measure(device, card, state['bench']), None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:
@@ -2150,8 +2290,8 @@ def main():
         log('chip_smoke: failed phases: {}'.format(', '.join(failures)))
         return 1
     # each kernel's launches in its own path's run (phase 2); beside them,
-    # by run, those of the bench's legs (phase 10), counted from 0 before
-    # each run
+    # by run, those of the bench's legs (phases 10 and 11), counted from 0
+    # before each run
     for entry in results:
         entry['launches'] = state['launches'][entry['name']]
         entry['launches_by_run'] = dict(

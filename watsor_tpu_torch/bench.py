@@ -1,10 +1,22 @@
-"""The port's end-to-end measurement entry points: the counterpart of the
-repo-root ``bench.py`` (``step``), ``scripts/run_baseline5.py`` (``app``)
-and ``scripts/latency_sweep.py`` (``sweep``).
+"""The port's measurement entry points: the counterpart of the repo-root
+``bench.py`` (``step``), ``scripts/run_baseline5.py`` (``app``),
+``scripts/latency_sweep.py`` (``sweep``) and the other measurement scripts
+of ``scripts/``, whose legs live in ``watsor_tpu_torch/measure/``.
 
-    python -m watsor_tpu_torch.bench step  [--device DEV]
-    python -m watsor_tpu_torch.bench app   [--device DEV] [--nms MODE]
-    python -m watsor_tpu_torch.bench sweep [--device DEV]
+    python -m watsor_tpu_torch.bench step    [--device DEV]
+    python -m watsor_tpu_torch.bench app     [--device DEV] [--nms MODE]
+    python -m watsor_tpu_torch.bench sweep   [--device DEV]
+    python -m watsor_tpu_torch.bench host    [--device DEV]   host_budget.py
+    python -m watsor_tpu_torch.bench nms     [--device DEV]   the NMS modes
+    python -m watsor_tpu_torch.bench int8    [--device DEV]   bench_int8_full.py
+    python -m watsor_tpu_torch.bench overlap [--device DEV]   measure_overlap.py
+    python -m watsor_tpu_torch.bench models  [--device DEV] [NAME ...]
+    python -m watsor_tpu_torch.bench overlay [--device DEV] [BATCH H W]
+    python -m watsor_tpu_torch.bench restart [--device DEV]   warm_restart.py
+
+``nms`` ports measure_nms_modes.py, validate_nms_modes.py and
+measure_nms_active.py; ``models`` roofline.py and validate_timing.py; each
+of the last seven is documented in its module under ``measure/``.
 
 Each subcommand prints one JSON line as the last line of its standard
 output and its progress on standard error. It reads the environment
@@ -15,9 +27,11 @@ device probe) has no counterpart: ``torch.cuda.is_available()`` answers
 at once.
 Without a card and without ``--device cpu`` a subcommand prints bench.py's
 error record (``value`` 0 and ``error``) and exits 1; it never carries on
-on the CPU. No subcommand writes into the repository: ``app`` and
-``sweep`` write their line to ``BASELINE5_OUT`` or ``SWEEP_OUT`` only where
-that is set.
+on the CPU. No subcommand writes into the repository or the working
+directory: each writes its line to its script's variable (``BASELINE5_OUT``,
+``SWEEP_OUT``, ``HOST_BUDGET_OUT``, ``NMS_OUT``, ``INT8_FULL_OUT``,
+``OVERLAP_RESULTS``, ``ROOFLINE_OUT`` and ``VALIDATE_OUT``,
+``WARM_RESTART_OUT``) only where that is set.
 
 ``step`` (bench.py): ``build_detector(SSDConfig())`` (ssd_mobilenet_v2 at
 300x300, bf16, ``nms: fused``) at ``BENCH_BATCH`` (32) frames. ``value``
@@ -61,7 +75,6 @@ and the best H2D rate of one [bucket, 300, 300, 3] uint8 batch (5 tries).
 """
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -75,6 +88,7 @@ from time import perf_counter
 import numpy as np
 import torch
 
+from watsor_tpu_torch.measure import scoped_environ, sync, write_out
 from watsor_tpu_torch.workload import card_label
 
 BASELINE_FPS = 120.0  # the reference's single-accelerator throughput
@@ -86,7 +100,14 @@ SAMPLE_PERIOD_S = 10.0
 SWEEP_REFILL_S = 15.0
 METRICS = {'step': 'ssd_mobilenet_v2_300 fused detect step',
            'app': 'BASELINE config #5 (real application)',
-           'sweep': 'latency_sweep'}
+           'sweep': 'latency_sweep',
+           'host': 'host budget',
+           'nms': 'nms modes',
+           'int8': 'int8_full step vs bf16',
+           'overlap': 'transfer/compute overlap, SSD300 fused step',
+           'models': 'roofline and chained timing of the zoo',
+           'overlay': 'device overlay render',
+           'restart': 'warm restart'}
 
 
 class BenchError(RuntimeError):
@@ -101,26 +122,6 @@ def _env(name, default, kind=float):
     return kind(os.environ.get(name) or default)
 
 
-@contextlib.contextmanager
-def scoped_environ(values):
-    """``values`` set in os.environ for a block (None removes one), then
-    restored."""
-    saved = {k: os.environ.get(k) for k in values}
-    for k, v in values.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 # copied from bench.py:47-55
 def _reps(fn, n):
     """Run a timed experiment ``n`` times; return (median, spread-dict)."""
@@ -128,11 +129,6 @@ def _reps(fn, n):
     med = float(np.median(vals))
     return med, {"median": round(med, 1), "min": round(min(vals), 1),
                  "max": round(max(vals), 1), "n": n}
-
-
-def _sync(device):
-    if device.type == 'cuda':
-        torch.cuda.synchronize(device)
 
 
 # -- step (bench.py) ---------------------------------------------------------
@@ -158,14 +154,14 @@ def run_step(device, log=_log):
     log('bench: batch-{} step on {}'.format(batch, device))
     t0 = perf_counter()
     step(buffers[0])
-    _sync(device)
+    sync(device)
     log('bench: warm in {:.1f}s'.format(perf_counter() - t0))
 
     def device_leg():
         t0 = perf_counter()
         for i in range(measure_steps):
             step(buffers[i % 4])
-        _sync(device)
+        sync(device)
         return batch * measure_steps / (perf_counter() - t0)
 
     device_fps, device_spread = _reps(device_leg, reps)
@@ -174,7 +170,7 @@ def run_step(device, log=_log):
     for i in range(10):
         t1 = perf_counter()
         step(buffers[i % 4])
-        _sync(device)
+        sync(device)
         lat.append((perf_counter() - t1) * 1000.0)
     p50_ms = float(np.percentile(lat, 50))
 
@@ -182,7 +178,7 @@ def run_step(device, log=_log):
         t0 = perf_counter()
         for _ in range(5):
             step(torch.from_numpy(host_frames).to(device))
-        _sync(device)
+        sync(device)
         return batch * 5 / (perf_counter() - t0)
 
     h2d_fps, h2d_spread = _reps(h2d_leg, reps)
@@ -207,7 +203,7 @@ def run_step(device, log=_log):
     pipelined_fps, pipelined_spread = _reps(pipelined_leg, reps)
     t0 = perf_counter()
     torch.from_numpy(host_frames).to(device)
-    _sync(device)
+    sync(device)
     h2d_ms = (perf_counter() - t0) * 1000.0
 
     result = {
@@ -448,16 +444,6 @@ def _mean(values):
     return round(sum(values) / len(values), 1) if values else None
 
 
-def _write_out(name, row, mode):
-    """The record into the file the environment variable ``name`` names,
-    if it is set (``mode`` 'w' as run_baseline5.py, 'a' as
-    latency_sweep.py)."""
-    out = os.environ.get(name)
-    if out:
-        with open(out, mode) as f:
-            f.write(json.dumps(row) + '\n')
-
-
 def run_app(device, nms=None, frame_hw=(1080, 1920), log=_log,
             summarize=aggregate):
     """run_baseline5.py's record for TorchApplication on ``device``;
@@ -522,7 +508,7 @@ def run_app(device, nms=None, frame_hw=(1080, 1920), log=_log,
     if not result['detector_fps']:
         raise BenchError('the detector served 0 frames/s: {}'.format(
             json.dumps(result)))
-    _write_out('BASELINE5_OUT', result, 'w')
+    write_out('BASELINE5_OUT', result, 'w')
     return result
 
 
@@ -545,7 +531,7 @@ def probe_link(bucket, device):
         payload[0, 0, 0, 0] = i
         t0 = perf_counter()
         x = payload.to(device)
-        _sync(device)
+        sync(device)
         int(x[0, 0, 0, 0])
         rates.append(payload.nbytes / (perf_counter() - t0) / 1e6)
     return {
@@ -606,7 +592,7 @@ def run_sweep(device, log=_log):
         'device': card_label(device),
         'ts': time.strftime('%Y-%m-%dT%H:%M:%S'),
     }
-    _write_out('SWEEP_OUT', row, 'a')
+    write_out('SWEEP_OUT', row, 'a')
     return row
 
 
@@ -616,12 +602,37 @@ def error_record(command, error):
             'vs_baseline': 0, 'error': error}
 
 
+def run_command(command, device, args):
+    """The record of ``command`` on ``device``."""
+    from watsor_tpu_torch.measure import (host_budget, int8_full, nms_modes,
+                                          overlap, overlay, roofline_table,
+                                          warm_restart)
+    legs = {
+        'step': lambda: run_step(device),
+        'app': lambda: run_app(device, nms=args.nms),
+        'sweep': lambda: run_sweep(device),
+        'host': lambda: host_budget.measure(device, log=_log),
+        'nms': lambda: nms_modes.measure(device, log=_log),
+        'int8': lambda: int8_full.measure(device, log=_log),
+        'overlap': lambda: overlap.measure(device, log=_log),
+        'models': lambda: roofline_table.measure(
+            device, names=args.operands, log=_log),
+        'overlay': lambda: overlay.measure(
+            device, *(int(v) for v in args.operands), log=_log),
+        'restart': lambda: warm_restart.measure(device, log=_log)}
+    return legs[command]()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog='python -m watsor_tpu_torch.bench',
-        description='The detect-step bench and the application under the '
-                    'north-star load, one JSON line each.')
-    parser.add_argument('command', choices=('step', 'app', 'sweep'))
+        description='The detect-step bench, the application under the '
+                    'north-star load and the measurement legs of scripts/, '
+                    'one JSON line each.')
+    parser.add_argument('command', choices=tuple(METRICS))
+    parser.add_argument('operands', nargs='*',
+                        help='models: zoo names; overlay: batch, height, '
+                             'width')
     parser.add_argument('--device', default=None,
                         help="the device (default: the current CUDA device; "
                              "'cpu' for the CPU)")
@@ -632,20 +643,22 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.nms and args.command != 'app':
         parser.error('--nms applies to app only')
+    if args.operands and args.command not in ('models', 'overlay'):
+        parser.error('operands apply to models and overlay only')
+    if args.command == 'overlay' and len(args.operands) > 3:
+        parser.error('overlay takes at most batch, height and width')
     if args.device is None and not torch.cuda.is_available():
         print(json.dumps(error_record(
             args.command, 'no CUDA device is visible (pass --device cpu to '
             'run on the CPU)')), flush=True)
         return 1
     from watsor_tpu_torch.models.ssd import resolve_device
-    device = resolve_device(args.device)
+    # the restart leg's parent makes no CUDA call: its children meet the
+    # card fresh
+    device = torch.device(args.device or 'cuda') \
+        if args.command == 'restart' else resolve_device(args.device)
     try:
-        if args.command == 'step':
-            result = run_step(device)
-        elif args.command == 'app':
-            result = run_app(device, nms=args.nms)
-        else:
-            result = run_sweep(device)
+        result = run_command(args.command, device, args)
     except Exception as exc:
         # a failed leg fails the run, with its record as the last line
         traceback.print_exc()
