@@ -142,6 +142,18 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    kernels and the second finding them. Each leg's kernel launches are
    counted from 0 and its last ones held against the plain versions as in
    phase 10;
+12. the per-class NMS entry under its fused modes (the early fused form)
+   on decoded boxes and sigmoid scores at efficientdet_lite4's scale (its
+   76,725 anchors, 90 classes, 8 images): kernel 1 once a call in both
+   greedy modes, each launch bit for bit against its plain version, each
+   mode against the late form (classes and counts exact, floats within
+   1e-6), bf16 scores through ``fused_exact``, and ``fused_exact`` equal
+   to the classic ``exact`` (kernel 3) where 100 live anchors an image let
+   the union cover every candidate; then ``bench lite4`` on
+   efficientdet_lite4 at 640x640, batch 8, 3 dispatch steps and chains of
+   2 and 16: every row finite and positive, and the backbone -> fpn ->
+   heads chain over the model's own submodules equal to its forward bit
+   for bit;
 
 and last checks that no thread the phases started is still running (the
 applications must have ended their HTTP request threads) and that nothing
@@ -154,7 +166,7 @@ non-zero without the final line. Weights are random, from a fixed seed.
 Output: versions, the card, build time, per-phase lines, a JSON line of
 kernel results (each kernel's launches are those of its path's run in
 phase 2; ``launches_by_run`` gives them beside those of each leg of phases
-10 and 11), and as the last line ``{"ok": true, "device": {...}}``.
+10 to 12), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -250,6 +262,16 @@ MEASURE_OVERLAY = (16, 1080, 1920)
 MEASURE_NMS_SHAPES = {
     'fixed_point_suppress': ((32, 90, 128), (32, 2, 128)),
     'pallas_suppress': ((32, 90, 100, 4), (32, 2, 100, 4))}
+# phase 12: bench lite4 on efficientdet_lite4 at its 640x640 with fewer
+# steps and shorter chains (its chains long enough that the smallest part,
+# the resize and normalize, stands clear of the host's jitter); the early
+# fused NMS at Lite4's scale, with this many live anchors an image where
+# the union must cover every candidate; its bar against the late form
+# (tests/test_nms_fused.py:79)
+LITE4_ENV = {'BENCH_BATCH': str(BATCH), 'BENCH_STEPS': '3', 'N_SHORT': '2',
+             'N_LONG': '16'}
+LITE4_LIVE_ANCHORS = 100
+EARLY_LATE_ATOL = 1e-6
 # the knobs earlier phases left set, cleared for every bench leg
 BENCH_CLEARED = (
     'WATSOR_FLEET', 'WATSOR_FUSED_BLOCKS', 'WATSOR_QUANTIZE',
@@ -258,7 +280,7 @@ BENCH_CLEARED = (
     'BENCH_BATCH', 'BENCH_STEPS', 'BASELINE5_CAP', 'BASELINE5_OUT',
     'N_SHORT', 'N_LONG', 'WATSOR_FUSED_HEADS',
     'HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'OVERLAP_RESULTS',
-    'ROOFLINE_OUT', 'VALIDATE_OUT', 'WARM_RESTART_OUT')
+    'ROOFLINE_OUT', 'VALIDATE_OUT', 'WARM_RESTART_OUT', 'PROFILE_OUT')
 
 
 def log(*args):
@@ -2094,6 +2116,152 @@ def phase_measure(device, card, launches):
                              .format(record))
 
 
+def _lite4_nms_inputs(device):
+    """Decoded boxes and f32 sigmoid scores [BATCH, A, 90] on
+    efficientdet_lite4's anchors (A = 76,725), from box encodings uniform
+    in [-1, 1] and bf16 logits uniform in [-6, 1] (the detect step's dtype,
+    as profile_lite4.py draws them) from seed 0; returns (box_enc, logits,
+    anchors, scales, boxes, scores). f32 sigmoid is one to one on bf16
+    logits, so the early form's union (by score) and the late form's (by
+    logit) tie alike; on f32 logits this dense, neighbours within a few
+    ulps of 1 share a score and the two unions' tie orders part."""
+    import torch
+    from watsor_tpu_torch.models.efficientdet import (effdet_anchors,
+                                                      lite_config)
+    from watsor_tpu_torch.ops.boxes import decode_boxes
+    cfg = lite_config('lite4')
+    scales = tuple(cfg.box_coder_scales)
+    anchors = torch.from_numpy(effdet_anchors(cfg)).to(device)
+    g = torch.Generator(device=device).manual_seed(0)
+    A = anchors.shape[0]
+    box_enc = torch.rand((BATCH, A, 4), generator=g, device=device) * 2 - 1
+    logits = (torch.rand((BATCH, A, cfg.num_classes), generator=g,
+                         device=device) * 7 - 6).to(torch.bfloat16)
+    return (box_enc, logits, anchors, scales,
+            decode_boxes(box_enc, anchors, scales=scales),
+            torch.sigmoid(logits.float()))
+
+
+def _fused_nms_early(device):
+    """The per-class entry under its three fused modes (the early fused
+    form) at Lite4's scale: kernel 1 once a call in both greedy modes and
+    never under ``fused``; each output against the late form on the
+    encodings and logits behind it (classes and counts exact, floats within
+    EARLY_LATE_ATOL); bf16 scores through ``fused_exact`` (kernel 1 on
+    their exact f32 widening, the scores returned in bf16); then, with
+    LITE4_LIVE_ANCHORS anchors an image scored and the rest at 0, so that
+    the union covers every candidate, ``fused_exact`` equal to the classic
+    ``exact`` (kernel 3) in every output (tests/test_nms_semantics.py:78;
+    the live scores all distinct, as that test's are, since the two merges
+    order equal scores of one class by different indices). Returns the
+    record."""
+    import torch
+    from watsor_tpu_torch.ops import nms, nms_fixed_point
+    box_enc, logits, anchors, scales, boxes, scores = \
+        _lite4_nms_inputs(device)
+    fp = nms_fixed_point.fixed_point_suppress
+    record = {'shape': list(scores.shape)}
+    for mode, suppression in nms.FUSED_SUPPRESSION.items():
+        before = fp.launches
+        early = nms.batched_class_aware_nms(boxes, scores, mode=mode)
+        torch.cuda.synchronize()
+        launched = fp.launches - before
+        if launched != int(suppression != 'fast'):
+            raise AssertionError('{}: {} fixed_point_suppress launches'
+                                 .format(mode, launched))
+        late = nms.batched_class_aware_nms_fused_late(
+            box_enc, logits, anchors, scales=scales, suppression=suppression)
+        if not (torch.equal(early[2], late[2]) and
+                torch.equal(early[3], late[3])):
+            raise AssertionError('{}: early and late classes or counts '
+                                 'differ'.format(mode))
+        gap = max(float((e - l).abs().max()) for e, l in zip(early[:2],
+                                                             late[:2]))
+        if gap > EARLY_LATE_ATOL:
+            raise AssertionError('{}: early against late {}'.format(mode,
+                                                                   gap))
+        record[mode] = {'launches': launched, 'valid': early[3].tolist(),
+                        'early_vs_late_max_abs': gap}
+    before = fp.launches
+    out = nms.batched_class_aware_nms(boxes, scores.to(torch.bfloat16),
+                                      mode='fused_exact')
+    torch.cuda.synchronize()
+    if fp.launches - before != 1 or out[1].dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(out[1].float()).all()):
+        raise AssertionError('fused_exact on bf16 scores: {} launches, '
+                             'scores {}'.format(fp.launches - before,
+                                                out[1].dtype))
+    record['fused_exact_bf16_valid'] = out[3].tolist()
+    g = torch.Generator(device=device).manual_seed(1)
+    B, A, C = scores.shape
+    n = LITE4_LIVE_ANCHORS * C
+    sparse = torch.zeros_like(scores)
+    for b in range(BATCH):
+        anchors_b = torch.randperm(A, generator=g, device=device)[
+            :LITE4_LIVE_ANCHORS]
+        ranks = torch.randperm(n, generator=g, device=device) + 1
+        sparse[b, anchors_b] = (ranks.float() / (n + 1)).view(-1, C)
+    exact = nms.batched_class_aware_nms(boxes, sparse, mode='exact')
+    fused = nms.batched_class_aware_nms(boxes, sparse, mode='fused_exact')
+    for name, e, f in zip(('boxes', 'scores', 'classes', 'valid'), exact,
+                          fused):
+        if not torch.equal(e, f):
+            raise AssertionError('fused_exact against exact, union '
+                                 'covering: {} differ'.format(name))
+    record['covering_union_valid'] = exact[3].tolist()
+    return record
+
+
+def phase_lite4(device, card, launches):
+    """phase12: the early fused NMS (``_fused_nms_early``) and ``bench
+    lite4`` on efficientdet_lite4 at 640x640 (LITE4_ENV), one JSON line a
+    leg (``_bench_leg``: each leg's launches counted from 0, kernel 1's and
+    kernel 3's held bit for bit against their plain versions). Every row
+    of the record finite and positive, its eight stage rows; after the
+    leg, on efficientdet_lite4 built as the leg builds it, the backbone ->
+    fpn -> heads chain over the model's own submodules equal to
+    ``raw_apply`` bit for bit on a seeded bf16 batch.
+    Any failed check fails the phase."""
+    import math
+    import torch
+    from watsor_tpu_torch.measure import lite4
+    from watsor_tpu_torch.models.zoo import build_from_zoo
+
+    _bench_leg('phase12', 'fused nms', {}, lambda: _fused_nms_early(device),
+               ('fixed_point_suppress', 'pallas_suppress'), launches, card)
+    record, _, _ = _bench_leg(
+        'phase12', 'lite4', LITE4_ENV, lambda: lite4.measure(device, log=log),
+        (), launches, card)
+    rows = [record[part] for part in lite4.PARTS if part != 'stages'] + \
+        record['stages']
+    bad = [row for row in rows for key in ('ms_per_step',
+                                           'chained_ms_per_step')
+           if not (math.isfinite(row[key]) and row[key] > 0)]
+    if bad or len(record['stages']) != 8 or record['anchors'] != 76725:
+        raise AssertionError('lite4 record: rows {} not finite and '
+                             'positive, {} stage rows'.format(
+                                 bad, len(record['stages'])))
+    detector = build_from_zoo('efficientdet_' + lite4.VARIANT, None,
+                              device=device)
+    section = lite4.sections(detector)
+    size = detector.config.input_size
+    g = torch.Generator(device=device).manual_seed(2)
+    x = (torch.rand((BATCH, size, size, 3), generator=g, device=device) * 2 -
+         1).to(detector.config.dtype)
+    with torch.inference_mode():
+        chain = section['heads'](section['fpn'](section['backbone'](x)))
+        whole = detector.raw_apply(x)
+    torch.cuda.synchronize()
+    same = [torch.equal(c, w) for c, w in zip(chain, whole)]
+    log('phase12 lite4 [{}]: backbone -> fpn -> heads against raw_apply on '
+        '{} x {}x{} bf16: box_enc {}, logits {}'.format(
+            card, BATCH, size, size, *('bit-identical' if ok else 'DIFFERS'
+                                       for ok in same)))
+    if not all(same):
+        raise AssertionError('lite4: the section chain differs from '
+                             'raw_apply')
+
+
 def _jax_modules():
     """Modules of JAX, and of the JAX package, that this process imported
     (``watsor_tpu`` and its submodules, not ``watsor_tpu_torch``)."""
@@ -2262,7 +2430,9 @@ def main():
         ('phase10 bench',
          lambda: phase_bench(device, card, state['bench']), None),
         ('phase11 measure',
-         lambda: phase_measure(device, card, state['bench']), None)]
+         lambda: phase_measure(device, card, state['bench']), None),
+        ('phase12 lite4', lambda: phase_lite4(device, card, state['bench']),
+         None)]
     start = time.perf_counter()
     for name, run, needs in phases:
         if needs in failures:
@@ -2290,7 +2460,7 @@ def main():
         log('chip_smoke: failed phases: {}'.format(', '.join(failures)))
         return 1
     # each kernel's launches in its own path's run (phase 2); beside them,
-    # by run, those of the bench's legs (phases 10 and 11), counted from 0
+    # by run, those of the bench's legs (phases 10 to 12), counted from 0
     # before each run
     for entry in results:
         entry['launches'] = state['launches'][entry['name']]

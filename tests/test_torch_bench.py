@@ -25,22 +25,13 @@ import pytest
 import torch
 
 from watsor_tpu_torch import bench, timing
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNOBS = ('WATSOR_FUSED_BLOCKS', 'WATSOR_QUANTIZE', 'WATSOR_INT8_POINTWISE',
          'WATSOR_FLEET', 'WATSOR_DEVICE_RENDER', 'WATSOR_DEVICE_POOL',
          'WATSOR_MIN_BUCKET', 'WATSOR_MODEL', 'TRT_FLOAT_PRECISION',
          'BASELINE5_OUT', 'SWEEP_OUT')
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread: a team of eight stalls at its barriers when the
-    other test workers keep the cores busy."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

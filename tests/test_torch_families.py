@@ -34,6 +34,7 @@ from watsor_tpu_torch.models.efficientdet import (build_effdet, lite_config,
                                                   upsample_nearest)
 from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
 from watsor_tpu_torch.models.weights import export_variables
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 RAW_REL_TOL = 5e-4
 DETECT_TOL = 1e-4

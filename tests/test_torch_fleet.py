@@ -34,6 +34,7 @@ from watsor_tpu_torch.parallel import (FleetDetector, batch_sharding,
                                        make_mesh, replicate)
 from watsor_tpu_torch.runtime.frames import FrameBuffer, State
 from watsor_tpu_torch.runtime.tasks import Payload
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 BOX_TOL = 1e-5
 SIZE = 96

@@ -40,21 +40,12 @@ from watsor_tpu.models.zoo import build_from_zoo as jax_build_from_zoo
 from watsor_tpu.testing import golden as jax_golden
 from watsor_tpu_torch.models.msgpack import load_msgpack
 from watsor_tpu_torch.testing import golden
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 TIER1 = ('ssd_mobilenet_v2', 'efficientdet_lite0')
 CASES = [pytest.param(family, mode, marks=() if family in TIER1
                       else pytest.mark.slow)
          for family in golden.GOLDEN_FAMILIES for mode in golden.GOLDEN_MODES]
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """One torch thread: a larger team stalls at its barriers when the
-    other test workers keep the cores busy."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')
@@ -252,7 +243,7 @@ def test_probe_reports_the_stored_gain_and_restores_it(photos):
     batch, names = photos
     family = 'efficientdet_lite0'
     gain = golden.FAMILY_GAINS[family]
-    rows = list(golden.probe(family, [gain[0]], batch, names))
+    rows = list(golden.probe(family, [gain[0]], batch, names, 'cpu'))
     assert [row['mode'] for row in rows] == list(golden.GOLDEN_MODES)
     for row in rows:
         assert row['gain'] == gain[0] and not row['ties']
@@ -269,6 +260,17 @@ def test_probe_reports_the_stored_gain_and_restores_it(photos):
     finally:
         golden.FAMILY_GAINS[family] = gain
     np.testing.assert_allclose(other, 2 * kernel, rtol=1e-6)
+
+
+def test_probe_runs_on_the_card_unless_asked_for_the_cpu(photos,
+                                                       monkeypatch):
+    """``probe`` with no device takes the current CUDA device, as the
+    port's entry points do: with none visible it raises at the call, and
+    never falls back to the CPU."""
+    batch, names = photos
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        golden.probe('efficientdet_lite0', [1.0], batch, names)
 
 
 def test_check_holds_the_cpu_to_the_goldens(photos):

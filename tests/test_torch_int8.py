@@ -27,6 +27,7 @@ from watsor_tpu_torch import workload
 from watsor_tpu_torch.models import quantize as t_quant
 from watsor_tpu_torch.models import ssd_int8 as t_int8
 from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 from test_torch_int8_matmul import _int8_close
 
 SIZE = 96

@@ -29,6 +29,7 @@ import torch
 from watsor_tpu_torch import bench, timing
 from watsor_tpu_torch.measure import (host_budget, int8_full, nms_modes,
                                       overlap, roofline_table, warm_restart)
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_VARS = ('HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'OVERLAP_RESULTS',
@@ -44,16 +45,6 @@ WRITES = {'host': ['HOST_BUDGET_OUT'], 'nms': ['NMS_OUT'],
 LEGS = {'host': ['host'], 'nms': ['nms'], 'int8': ['int8'],
         'overlap': ['overlap'], 'models': ['models', 'efficientdet_lite0'],
         'overlay': ['overlay', '2', '64', '96'], 'restart': ['restart']}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch thread: a team of eight stalls at its barriers when the
-    other test workers keep the cores busy."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

@@ -29,6 +29,7 @@ from watsor_tpu_torch.models.ssd_fused import (build_folded_pack,
 from watsor_tpu_torch.models.weights import export_variables, load_npz
 from watsor_tpu_torch.models.zoo import build_from_zoo
 from watsor_tpu_torch.ops.preprocess import preprocess_batch
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 RAW_REL_TOL = 5e-4
 FUSED_ATOL = 5e-3

@@ -158,3 +158,36 @@ def test_anchor_copies_equal_original(input_size):
         j_anchors.anchors_per_location()
     np.testing.assert_array_equal(t_anchors.ssd_anchors(shapes),
                                   j_anchors.ssd_anchors(shapes))
+
+
+def test_package_exports_follow_the_jax_package():
+    """``watsor_tpu_torch.ops`` and ``watsor_tpu_torch.models`` export
+    every name of ``watsor_tpu.ops`` and ``watsor_tpu.models``
+    (``resize_bilinear`` for ``resize_bilinear_mxu``); in a fresh
+    interpreter, importing them in either order builds no kernel and
+    imports nothing of JAX."""
+    import subprocess
+    import sys
+
+    import watsor_tpu.models as j_models
+    import watsor_tpu.ops as j_ops
+    import watsor_tpu_torch.models as t_models
+    import watsor_tpu_torch.ops as t_ops
+    from watsor_tpu_torch.ops import nms as t_nms
+
+    renamed = {'resize_bilinear_mxu': 'resize_bilinear'}
+    for jax_package, port in ((j_ops, t_ops), (j_models, t_models)):
+        names = [renamed.get(name, name) for name in jax_package.__all__]
+        assert sorted(port.__all__) == sorted(names)
+        for name in names:
+            assert getattr(port, name) is not None, name
+    assert t_ops.batched_class_aware_nms is t_nms.batched_class_aware_nms
+    assert t_ops.resize_bilinear is t_pre.resize_bilinear
+    for first, second in (('ops', 'models'), ('models', 'ops')):
+        code = ('import sys\n'
+                'import watsor_tpu_torch.{} as a, watsor_tpu_torch.{} as b\n'
+                'from watsor_tpu_torch import _build\n'
+                'assert not _build._libs, _build._libs\n'
+                'assert not [m for m in sys.modules if m.split(".")[0] in '
+                '("jax", "flax", "watsor_tpu")]\n').format(first, second)
+        subprocess.run([sys.executable, '-c', code], check=True, timeout=120)

@@ -28,19 +28,9 @@ from watsor_tpu_torch.models.zoo import (load_weights, model_config,
 from watsor_tpu_torch.testing import prepare
 from watsor_tpu_torch.testing.prepare import (SHAPE_MODEL, generate_batch,
                                               make_shape_config)
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 RAW_REL_TOL = 5e-4
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The port's side in one thread: these small shapes gain nothing from
-    more, and in a parallel test run an OpenMP team of one thread a core
-    stalls at every barrier while the other workers hold the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 

@@ -61,6 +61,7 @@ from watsor_tpu_torch.parallel import (fleet, make_mesh,
                                        make_sharded_train_step,
                                        param_shardings)
 from watsor_tpu_torch.testing.prepare import generate_batch
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_classes=3, input_size=96, width_multiplier=0.35,
             extra_features=(32, 32, 32, 32))
@@ -71,16 +72,6 @@ STATS_TOL = 1e-10
 GRAD_TOL = 1e-9
 METRIC_REL_TOL = 1e-5
 ADAMW_LOSS_RTOL = 1e-3
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The port's side in one intra-op thread a shard thread (as
-    tests/test_torch_train.py), beside the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _config(family, dtype=torch.float64):

@@ -128,6 +128,27 @@ def test_chained_model_runner_fresh_seed_changes_input():
     assert run(1, 2) == run(1, 2)
 
 
+def test_chained_input_runner_carries_through_one_element():
+    """A part's runner writes the carry into its first element alone, in
+    one buffer that is not the input ``make_input`` gave: each step sees
+    the input's values (the carry is zero) at one address, and the given
+    tensor is never written."""
+    given = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+    want = given.clone()
+    seen = []
+
+    def step(x):
+        seen.append((x.data_ptr(), x.clone()))
+        return x * 2.0, None
+
+    run = timing.chained_input_runner(step, lambda g: given, device='cpu')
+    assert run(5, 3) == 3 * 2.0 * float(want[0, 0, 0])
+    assert len({ptr for ptr, _ in seen}) == 1
+    assert seen[0][0] != given.data_ptr()
+    assert all(torch.equal(x, want) for _, x in seen)
+    assert torch.equal(given, want)
+
+
 def test_runner_needs_a_device_or_the_card(monkeypatch):
     """Entry points run on the card unless asked for the CPU."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

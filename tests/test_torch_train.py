@@ -68,17 +68,7 @@ from watsor_tpu_torch.models.ssd import SSDConfig
 from watsor_tpu_torch.models.weights import export_variables, init_weights
 from watsor_tpu_torch.ops.boxes import decode_boxes, encode_boxes
 from watsor_tpu_torch.testing.prepare import generate_batch
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _one_torch_thread():
-    """The port's side in one thread: these small shapes gain nothing from
-    more, and in a parallel test run an OpenMP team of one thread a core
-    stalls at every barrier while the other workers hold the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 
 # family -> (input size, batch)

@@ -13,10 +13,14 @@ of ``scripts/``, whose legs live in ``watsor_tpu_torch/measure/``.
     python -m watsor_tpu_torch.bench models  [--device DEV] [NAME ...]
     python -m watsor_tpu_torch.bench overlay [--device DEV] [BATCH H W]
     python -m watsor_tpu_torch.bench restart [--device DEV]   warm_restart.py
+    python -m watsor_tpu_torch.bench lite4   [--device DEV] [PART ...]
 
 ``nms`` ports measure_nms_modes.py, validate_nms_modes.py and
-measure_nms_active.py; ``models`` roofline.py and validate_timing.py; each
-of the last seven is documented in its module under ``measure/``.
+measure_nms_active.py; ``models`` roofline.py and validate_timing.py;
+``lite4`` profile_lite4.py, profile_lite4_sections.py and
+profile_backbone_stages.py (its parts: ``full``, ``forward``, ``post``,
+``pre``, ``backbone``, ``fpn``, ``heads``, ``stages``; none: all eight);
+each of the last eight is documented in its module under ``measure/``.
 
 Each subcommand prints one JSON line as the last line of its standard
 output and its progress on standard error. It reads the environment
@@ -31,7 +35,7 @@ on the CPU. No subcommand writes into the repository or the working
 directory: each writes its line to its script's variable (``BASELINE5_OUT``,
 ``SWEEP_OUT``, ``HOST_BUDGET_OUT``, ``NMS_OUT``, ``INT8_FULL_OUT``,
 ``OVERLAP_RESULTS``, ``ROOFLINE_OUT`` and ``VALIDATE_OUT``,
-``WARM_RESTART_OUT``) only where that is set.
+``WARM_RESTART_OUT``, ``PROFILE_OUT``) only where that is set.
 
 ``step`` (bench.py): ``build_detector(SSDConfig())`` (ssd_mobilenet_v2 at
 300x300, bf16, ``nms: fused``) at ``BENCH_BATCH`` (32) frames. ``value``
@@ -107,7 +111,9 @@ METRICS = {'step': 'ssd_mobilenet_v2_300 fused detect step',
            'overlap': 'transfer/compute overlap, SSD300 fused step',
            'models': 'roofline and chained timing of the zoo',
            'overlay': 'device overlay render',
-           'restart': 'warm restart'}
+           'restart': 'warm restart',
+           'lite4': 'EfficientDet-Lite step by stage, forward by section, '
+                    'backbone by stage group'}
 
 
 class BenchError(RuntimeError):
@@ -604,9 +610,9 @@ def error_record(command, error):
 
 def run_command(command, device, args):
     """The record of ``command`` on ``device``."""
-    from watsor_tpu_torch.measure import (host_budget, int8_full, nms_modes,
-                                          overlap, overlay, roofline_table,
-                                          warm_restart)
+    from watsor_tpu_torch.measure import (host_budget, int8_full, lite4,
+                                          nms_modes, overlap, overlay,
+                                          roofline_table, warm_restart)
     legs = {
         'step': lambda: run_step(device),
         'app': lambda: run_app(device, nms=args.nms),
@@ -619,7 +625,9 @@ def run_command(command, device, args):
             device, names=args.operands, log=_log),
         'overlay': lambda: overlay.measure(
             device, *(int(v) for v in args.operands), log=_log),
-        'restart': lambda: warm_restart.measure(device, log=_log)}
+        'restart': lambda: warm_restart.measure(device, log=_log),
+        'lite4': lambda: lite4.measure(device, parts=args.operands,
+                                       log=_log)}
     return legs[command]()
 
 
@@ -632,7 +640,7 @@ def main(argv=None):
     parser.add_argument('command', choices=tuple(METRICS))
     parser.add_argument('operands', nargs='*',
                         help='models: zoo names; overlay: batch, height, '
-                             'width')
+                             'width; lite4: parts')
     parser.add_argument('--device', default=None,
                         help="the device (default: the current CUDA device; "
                              "'cpu' for the CPU)")
@@ -643,10 +651,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.nms and args.command != 'app':
         parser.error('--nms applies to app only')
-    if args.operands and args.command not in ('models', 'overlay'):
-        parser.error('operands apply to models and overlay only')
+    if args.operands and args.command not in ('models', 'overlay', 'lite4'):
+        parser.error('operands apply to models, overlay and lite4 only')
     if args.command == 'overlay' and len(args.operands) > 3:
         parser.error('overlay takes at most batch, height and width')
+    if args.command == 'lite4':
+        from watsor_tpu_torch.measure.lite4 import PARTS
+        unknown = [p for p in args.operands if p not in PARTS]
+        if unknown:
+            parser.error('lite4 parts are {}, not {}'.format(
+                ', '.join(PARTS), ', '.join(unknown)))
     if args.device is None and not torch.cuda.is_available():
         print(json.dumps(error_record(
             args.command, 'no CUDA device is visible (pass --device cpu to '

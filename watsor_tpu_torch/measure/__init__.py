@@ -8,7 +8,9 @@
 - ``overlap`` (measure_overlap.py): ``bench overlap``;
 - ``roofline_table`` (roofline.py, validate_timing.py): ``bench models``;
 - ``overlay`` (measure_overlay.py): ``bench overlay``;
-- ``warm_restart`` (warm_restart.py): ``bench restart``.
+- ``warm_restart`` (warm_restart.py): ``bench restart``;
+- ``lite4`` (profile_lite4.py, profile_lite4_sections.py,
+  profile_backbone_stages.py): ``bench lite4``.
 
 Each module's ``measure(device, ...)`` returns the script's record as a
 dict, with the card's name and power limit under ``device``. A module
@@ -79,11 +81,20 @@ def dispatch_ms(step, buffers, steps, device):
 
 
 def chained_ms(step, batch, size, device, n_short=2, n_long=32, log=None):
-    """``timing.chained_step_ms`` over ``step(frames)`` at ``batch`` x
-    ``size``: the step captured once as a CUDA graph and replayed (eager
-    on the CPU). Returns (ms a step, detail)."""
+    """``chained_input_ms`` over ``step(frames)``, seeded uint8 frames of
+    ``batch`` x ``size`` x ``size``."""
+    from watsor_tpu_torch import timing
+    return chained_input_ms(step, timing.seeded_frames(batch, (size, size),
+                                                       device),
+                            device, n_short=n_short, n_long=n_long, log=log)
+
+
+def chained_input_ms(step, make_input, device, n_short=2, n_long=32,
+                     log=None):
+    """``timing.chained_step_ms`` over ``step(x)``, ``x`` made by
+    ``make_input(generator)``: the step captured once as a CUDA graph and
+    replayed (eager on the CPU). Returns (ms a step, detail)."""
     from watsor_tpu_torch import timing
     return timing.chained_step_ms(
-        timing.chained_model_runner(lambda _, x: step(x), None, batch, size,
-                                    device=device),
+        timing.chained_input_runner(step, make_input, device=device),
         n_short=n_short, n_long=n_long, log=log)

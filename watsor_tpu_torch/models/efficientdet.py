@@ -355,13 +355,22 @@ class EfficientDet(nn.Module):
                 module.momentum = 1.0 - EFFDET_BN_MOMENTUM
 
     def forward(self, images):
-        cfg = self.config
         x = images.permute(0, 3, 1, 2)       # NCHW view of NHWC storage
-        c3, c4, c5 = self.backbone(x)
+        return self.heads(self.fpn(*self.backbone(x)))
+
+    def fpn(self, c3, c4, c5):
+        """The BiFPN stack over the backbone's taps: P6 and P7 from C5,
+        then the cells -> [P3 .. P7] (NCHW views)."""
         p6 = max_pool_same(self.resample_p6(c5))
         feats = [c3, c4, c5, p6, max_pool_same(p6)]
-        for r in range(cfg.fpn_repeats):
+        for r in range(self.config.fpn_repeats):
             feats = getattr(self, 'bifpn{}'.format(r))(feats)
+        return feats
+
+    def heads(self, feats):
+        """The class and box heads over [P3 .. P7] -> (box_enc [B, A, 4],
+        logits [B, A, num_class_outputs]) in the activation dtype."""
+        cfg = self.config
         if cfg.fused_heads:
             outs = self.dual_head(feats)
             cls_out = [y[:, :self.cls_features] for y in outs]
@@ -369,7 +378,7 @@ class EfficientDet(nn.Module):
         else:
             cls_out = self.cls_head(feats)
             box_out = self.box_head(feats)
-        B = images.shape[0]
+        B = feats[0].shape[0]
         num_cls = cfg.num_class_outputs
         boxes = torch.cat([b.permute(0, 2, 3, 1).reshape(B, -1, 4)
                            for b in box_out], dim=1)

@@ -215,16 +215,36 @@ def active_label_array(cfg, device=None):
     return torch.tensor(labels, dtype=torch.int32, device=device)
 
 
+def post_nms(cfg, anchors_dev, box_enc, cls_logits):
+    """The detect step's decode and NMS on the raw outputs ``box_enc``
+    [B, A, 4] and ``cls_logits`` [B, A, C] (background and unwatched
+    columns removed) -> (boxes, scores, classes numbered from 1 over the
+    columns with 0 for padding, valid).
+    The fused modes decode and take the f32 sigmoid on the candidate union
+    only; the classic per-class modes decode every anchor in f32 and take
+    the f32 sigmoid of every column."""
+    kw = dict(iou_threshold=cfg.iou_threshold,
+              score_threshold=cfg.score_threshold,
+              max_detections=cfg.max_detections)
+    suppression = FUSED_SUPPRESSION.get(cfg.nms_mode)
+    if suppression is not None:
+        return batched_class_aware_nms_fused_late(
+            box_enc, cls_logits, anchors_dev,
+            scales=tuple(cfg.box_coder_scales), suppression=suppression,
+            **kw)
+    boxes = decode_boxes(box_enc.float(), anchors_dev,
+                         scales=tuple(cfg.box_coder_scales))
+    return batched_class_aware_nms(boxes, torch.sigmoid(cls_logits.float()),
+                                   mode=cfg.nms_mode, **kw)
+
+
 def make_detect_batch(cfg, anchors_dev, raw_apply, normalize,
                       background_offset=1):
     """The one fused uint8-in -> detections-out step: device resize ->
-    ``normalize`` -> ``raw_apply`` -> active-label slice -> NMS -> 1-based
-    label remap. The fused modes decode and take the f32 sigmoid on the
-    candidate union only; the classic per-class modes decode every anchor
-    in f32 and take the f32 sigmoid of every watched column."""
+    ``normalize`` -> ``raw_apply`` -> active-label slice -> ``post_nms``
+    -> 1-based label remap."""
     check_supported(cfg)
     active = active_label_array(cfg, anchors_dev.device)
-    suppression = FUSED_SUPPRESSION.get(cfg.nms_mode)
 
     @torch.inference_mode()
     def detect_batch(images_u8):
@@ -234,22 +254,7 @@ def make_detect_batch(cfg, anchors_dev, raw_apply, normalize,
             cls_logits = logits[..., (active - 1 + background_offset).long()]
         else:
             cls_logits = logits[..., background_offset:]
-        if suppression is not None:
-            b, s, c, v = batched_class_aware_nms_fused_late(
-                box_enc, cls_logits, anchors_dev,
-                scales=tuple(cfg.box_coder_scales),
-                iou_threshold=cfg.iou_threshold,
-                score_threshold=cfg.score_threshold,
-                max_detections=cfg.max_detections,
-                suppression=suppression)
-        else:
-            boxes = decode_boxes(box_enc.float(), anchors_dev,
-                                 scales=tuple(cfg.box_coder_scales))
-            scores = torch.sigmoid(cls_logits.float())
-            b, s, c, v = batched_class_aware_nms(
-                boxes, scores, iou_threshold=cfg.iou_threshold,
-                score_threshold=cfg.score_threshold,
-                max_detections=cfg.max_detections, mode=cfg.nms_mode)
+        b, s, c, v = post_nms(cfg, anchors_dev, box_enc, cls_logits)
         if active is not None:
             c = torch.where(c > 0, active[(c - 1).clamp_min(0).long()], 0)
         return DetectionsBatch(b.float(), s.float(), c, v)

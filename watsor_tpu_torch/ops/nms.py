@@ -2,15 +2,24 @@
 watsor_tpu/ops/nms.py).
 
 The fused formulation: one class-agnostic candidate union (the top
-``union_m`` anchors by max-class logit), decode and f32 sigmoid on that
-union only, one overlap relation shared by every class, suppression for
-every class at once, and a top-k merge over classes. The classic
-per-class formulation (``batched_class_aware_nms``, modes ``exact``,
-``fast`` and ``pallas``):
-the top-k of each class over every decoded anchor, suppression within
-each class, and the same merge. Ties in every top-k step go to the lower
-index, as ``lax.top_k`` orders them: a stable descending sort gives that
-order, ``torch.topk`` promises none.
+``union_m`` anchors by max-class score), one overlap relation shared by
+every class, suppression for every class at once, and a top-k merge over
+classes. It comes in two forms with the same result:
+
+- early (``batched_class_aware_nms_fused``): decoded boxes and scores of
+  every anchor in, the union ranked by max-class score and gathered;
+- late (``batched_class_aware_nms_fused_late``, the detect step's): box
+  encodings and logits in, the union ranked by max-class logit, then
+  decode and f32 sigmoid on the union only.
+
+The per-class entry ``batched_class_aware_nms`` takes decoded boxes and
+scores. Its modes ``fused``, ``fused_exact`` and ``fused_exact_pallas``
+run the early fused form (suppression ``fast``, ``greedy`` and
+``greedy_pallas``); its modes ``exact``, ``fast`` and ``pallas`` run the
+classic per-class formulation: the top-k of each class over every anchor,
+suppression within each class, and the same merge. Ties in every top-k
+step go to the lower index, as ``lax.top_k`` orders them: a stable
+descending sort gives that order, ``torch.topk`` promises none.
 
 Fused suppression modes:
   ``fast``           a candidate is dropped if ANY higher-ranked same-class
@@ -38,6 +47,28 @@ def _top_k_lower_index(values, k):
     """Top-k along the last axis, ties to the lower index (lax.top_k)."""
     out, idx = torch.sort(values, dim=-1, descending=True, stable=True)
     return out[..., :k], idx[..., :k]
+
+
+def batched_class_aware_nms_fused(boxes, scores, iou_threshold=0.6,
+                                  score_threshold=0.005, max_detections=100,
+                                  union_m=128, suppression='fast'):
+    """The early fused form (watsor_tpu/ops/nms.py:67-116): boxes [B, A, 4]
+    decoded, scores [B, A, C] (background removed) -> the contract of
+    ``batched_class_aware_nms_fused_late``, the scores in their own
+    dtype."""
+    B, A, C = scores.shape
+    M = min(union_m, A)
+
+    best_score = scores.max(dim=-1).values                       # [B, A]
+    _, union_idx = _top_k_lower_index(best_score, M)             # [B, M]
+    union_boxes = torch.gather(boxes, 1,
+                               union_idx[..., None].expand(B, M, 4))
+    union_scores = torch.gather(scores, 1,
+                                union_idx[..., None].expand(B, M, C))
+    s = union_scores.transpose(1, 2).contiguous()                # [B, C, M]
+    return _fused_suppress_merge(union_boxes, s, iou_threshold,
+                                 score_threshold, max_detections,
+                                 suppression)
 
 
 def batched_class_aware_nms_fused_late(box_enc, logits, anchors, scales,
@@ -73,8 +104,10 @@ def _fused_suppress_merge(union_boxes, s, iou_threshold, score_threshold,
     scores) and the merge over classes."""
     B, C, M = s.shape
     if suppression in ('greedy', 'greedy_pallas'):
-        # on the card the kernel builds the overlap relation from the boxes
-        suppressed = ~fixed_point_suppress(s, union_boxes, iou_threshold)
+        # on the card the kernel builds the overlap relation from the boxes;
+        # it takes f32 scores, and widening bf16 is exact and keeps the order
+        suppressed = ~fixed_point_suppress(s.float(), union_boxes,
+                                           iou_threshold)
     elif suppression == 'fast':
         # higher[b, c, i, j]: candidate i outranks j for class c
         idx = torch.arange(M, device=s.device)
@@ -86,8 +119,9 @@ def _fused_suppress_merge(union_boxes, s, iou_threshold, score_threshold,
         suppressed = (higher & overlap).any(dim=2)               # [B, C, M]
     else:
         raise ValueError('unknown suppression {!r}'.format(suppression))
+    # the merge keeps the scores' dtype, as JAX's does
     kept = torch.where(~suppressed & (s > score_threshold), s,
-                       torch.zeros((), device=s.device))
+                       torch.zeros((), dtype=s.dtype, device=s.device))
 
     flat = kept.reshape(B, C * M)
     n_out = min(max_detections, C * M)
@@ -123,7 +157,7 @@ def _fast_keep(iou, iou_threshold):
 def batched_class_aware_nms(boxes, scores, iou_threshold=0.6,
                             score_threshold=0.005, max_detections=100,
                             per_class_k=100, mode='exact'):
-    """Classic per-class NMS (watsor_tpu/ops/nms.py:236-309).
+    """The per-class entry (watsor_tpu/ops/nms.py:236-309).
 
     boxes [B, A, 4] decoded, scores [B, A, C] (background removed) ->
     (boxes [B, N, 4], scores [B, N], classes [B, N] int32 1-based with
@@ -131,10 +165,16 @@ def batched_class_aware_nms(boxes, scores, iou_threshold=0.6,
     top ``per_class_k`` candidates; ``exact`` and ``pallas`` suppress them
     greedily through ops/nms_suppress.pallas_suppress (the CUDA kernel on
     the card), ``fast`` with Fast-NMS; then a top-k merge over classes.
-    The fused modes run ``batched_class_aware_nms_fused_late``."""
+    The fused modes run ``batched_class_aware_nms_fused`` on the same
+    boxes and scores (``per_class_k`` unused), as JAX's entry does."""
+    if mode in FUSED_SUPPRESSION:
+        return batched_class_aware_nms_fused(
+            boxes, scores, iou_threshold=iou_threshold,
+            score_threshold=score_threshold, max_detections=max_detections,
+            suppression=FUSED_SUPPRESSION[mode])
     if mode not in PER_CLASS_MODES:
-        raise ValueError('per-class NMS mode must be one of {}, got {!r}'
-                         .format(PER_CLASS_MODES, mode))
+        raise ValueError('NMS mode must be one of {}, got {!r}'.format(
+            sorted(FUSED_SUPPRESSION) + list(PER_CLASS_MODES), mode))
     B, A, C = scores.shape
     k = min(per_class_k, A)
 

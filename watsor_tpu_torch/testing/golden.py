@@ -499,10 +499,18 @@ def check_family(family, batch, names, device):
     return row
 
 
-def probe(family, gains, batch, names, device='cpu'):
-    """The runs that chose FAMILY_GAINS: for each body gain of ``family``,
-    a seeded tree at that gain (the class gain as stored) and its f32
-    records (TF32 off) under each NMS mode; yields one row a gain and mode:
+def probe(family, gains, batch, names, device=None):
+    """The runs that chose FAMILY_GAINS, on ``device`` (None: the current
+    CUDA device, raising without one; 'cpu' for the CPU), as an iterator
+    of rows (``_probe_rows``)."""
+    from watsor_tpu_torch.models.ssd import resolve_device
+    return _probe_rows(family, gains, batch, names, resolve_device(device))
+
+
+def _probe_rows(family, gains, batch, names, device):
+    """For each body gain of ``family``, a seeded tree at that gain (the
+    class gain as stored) and its f32 records (TF32 off) under each NMS
+    mode on ``device``; yields one row a gain and mode:
     the records each changed photo misses at F32_SCORE_TOL and at labels
     and places (``changed_photo_misses``), the production bf16 run's
     misses at labels and places and its largest score gap, and the photos
@@ -510,7 +518,6 @@ def probe(family, gains, batch, names, device='cpu'):
     photos, between the last stored record and the last detection read: a
     record of the f32 run nearer the end of what is read than bf16's
     rounding moves a score drops out of a bf16 run."""
-    device = torch.device(device)
     cls_gain = FAMILY_GAINS[family][1]
     saved = FAMILY_GAINS[family]
     found = (torch.backends.cudnn.allow_tf32,

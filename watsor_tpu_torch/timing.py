@@ -16,8 +16,11 @@ is the device's work, not the host's eager launches. A failed capture
 raises; nothing falls back to eager launches on the card. On the CPU,
 which has no graphs, a runner loops eagerly (the tests' path).
 
-The carry is a scalar, not the frames: each step adds it to the frames
-made from the seed (``img = img0 + dep``), as the JAX runners do.
+The carry is a scalar, not the frames. The full-path runner adds it to
+the frames made from the seed (``img = img0 + dep``), as the JAX runners
+do. The other runners add it to the input's first element alone, in place
+in a copy of the input: a whole-input add would be one more pass over the
+input a step, which a small part's time does not hold.
 """
 
 from time import perf_counter
@@ -71,18 +74,36 @@ def chained_step_ms(run, n_short=2, n_long=32, reps=5,
     return ms, detail
 
 
-def _chained_runner(body, batch, hw, device):
-    """``run(seed, n)`` over ``body(img) -> (dep, increment)``: ``img`` is
-    uint8 [batch, H, W, 3] frames from the seed plus the carried ``dep``
-    (a uint8 scalar tensor), and the runner returns the sum of the ``n``
-    f32 increments."""
-    device = torch.device(device)
+def seeded_frames(batch, hw, device):
+    """``make_input`` of uint8 [batch, H, W, 3] frames from the seed."""
     h, w = hw
+
+    def make_input(g):
+        return torch.randint(0, 255, (batch, h, w, 3), generator=g,
+                             dtype=torch.uint8, device=device)
+
+    return make_input
+
+
+def _chained_runner(body, make_input, device, whole_input=True):
+    """``run(seed, n)`` over ``body(img) -> (dep, increment)``: ``img`` is
+    ``make_input(generator)`` from the seed (uint8 frames for a detect
+    step) plus the carried ``dep`` (a scalar tensor of its dtype), added
+    to every element (``whole_input``) or to the first alone, and the
+    runner returns the sum of the ``n`` f32 increments."""
+    device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == 'cuda' else None
     state = {}
 
+    def carried():
+        if whole_input:
+            return state['img0'] + state['dep']
+        img, first = state['img'], (0,) * state['img'].dim()
+        img[first].copy_(state['img0'][first] + state['dep'])
+        return img
+
     def step():
-        dep, increment = body(state['img0'] + state['dep'])
+        dep, increment = body(carried())
         state['dep'].copy_(dep)
         state['acc'].add_(increment)
 
@@ -98,17 +119,17 @@ def _chained_runner(body, batch, hw, device):
     def run(seed, n):
         g = torch.Generator(device=device).manual_seed(int(seed))
         with torch.cuda.stream(stream):         # no-op on the CPU
-            img0 = torch.randint(0, 255, (batch, h, w, 3), generator=g,
-                                 dtype=torch.uint8, device=device)
+            img0 = make_input(g)
             if not state:
-                state.update(img0=img0,
-                             dep=torch.zeros((), dtype=torch.uint8,
+                state.update(img0=img0, img=img0.clone(),
+                             dep=torch.zeros((), dtype=img0.dtype,
                                              device=device),
                              acc=torch.zeros((), dtype=torch.float32,
                                              device=device))
                 if stream is not None:
                     state['graph'] = capture()
             state['img0'].copy_(img0)
+            state['img'].copy_(img0)
             state['dep'].zero_()
             state['acc'].zero_()
             for _ in range(n):
@@ -174,7 +195,7 @@ def chained_full_path_runner(detect_batch, params, tables, row_idx,
             (packed_sum * 0).to(torch.uint8)
         return dep, packed_sum + render_sum.float()
 
-    return _chained_runner(body, batch, (h, w), device)
+    return _chained_runner(body, seeded_frames(batch, (h, w), device), device)
 
 
 def build_production_detector(device):
@@ -251,9 +272,24 @@ def chained_model_runner(step, params, batch, size, device=None):
     from watsor_tpu_torch.models.ssd import resolve_device
 
     h, w = (size, size) if isinstance(size, int) else size
+    device = resolve_device(device)
+    return chained_input_runner(lambda img: step(params, img)[1],
+                                seeded_frames(batch, (h, w), device), device)
 
-    def body(img):
-        scores = step(params, img)[1]
-        return (scores[0, 0] * 0).to(torch.uint8), scores[0, 0].float()
 
-    return _chained_runner(body, batch, (h, w), resolve_device(device))
+def chained_input_runner(step, make_input, device=None):
+    """``run(seed, n)`` for ``step(x)`` (a detect step, or a part of one),
+    whose input ``x`` is ``make_input(generator)`` (any dtype), chained
+    through a zero scalar derived from the first element of its output (of
+    its first output, where it returns several tensors), added to the
+    input's first element alone."""
+    from watsor_tpu_torch.models.ssd import resolve_device
+
+    def body(x):
+        out = step(x)
+        out = out if isinstance(out, torch.Tensor) else out[0]
+        first = out[(0,) * out.dim()].float()     # no copy of a view
+        return (first * 0).to(x.dtype), first
+
+    return _chained_runner(body, make_input, resolve_device(device),
+                           whole_input=False)
