@@ -27,8 +27,10 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    with 38 int8_matmul_requant launches a forward and the raw outputs'
    cosine against the f32 plain model;
 3. boots TorchApplication on config/config.yaml and waits for detections
-   to flow through /metrics, once on the main path and once on the int8
-   path with ``nms: exact``, then with ``model: efficientdet_lite0``, the
+   to flow through /metrics, once on the main path (there GET
+   /profiler?seconds=2 must sum each of the program's backend and
+   detector-task spans and write a Chrome trace with the card's kernels)
+   and once on the int8 path with ``nms: exact``, then with ``model: efficientdet_lite0``, the
    default NMS and 8 synthetic cameras;
 4. builds each other family of the zoo at full width on the card
    (ssd_mobilenet_v1, ssdlite_mobilenet_v2, ssd_inception_v2,
@@ -128,15 +130,14 @@ PyTorch built for CUDA. It builds the port's four CUDA kernels from
    plain versions (kernels 1, 3 and 4 bit for bit, kernel 2 within phase
    1's tolerances);
 11. the measurement legs of watsor_tpu_torch/measure/ (``bench host``,
-   ``nms``, ``int8``, ``overlap``, ``models``, ``overlay``, ``restart``),
+   ``nms``, ``int8``, ``models``, ``overlay``, ``restart``),
    one JSON line a leg, at fewer steps: the host stages alone (the
    detector's scatter among them); the detect step under each NMS mode at
    C = 90 and C = 2, batch 32, dispatch loop and chained, with kernel 1
    (``fused_exact``) and kernel 3 (``exact``) launched at both class
    counts; bf16 against ``int8_full`` in each pointwise mode (kernel 4
    under ``pallas``), each mode's scores within cosine 0.95 of the bf16
-   step's; the backend's transfer against its step at batches 8 and 32;
-   the roofline row and chained time of ssd_mobilenet_v2 and
+   step's; the roofline row and chained time of ssd_mobilenet_v2 and
    efficientdet_lite4; the overlay at 16 x 1080p; and two child processes
    over one new kernel build directory, the first building the four
    kernels and the second finding them. Each leg's kernel launches are
@@ -254,7 +255,6 @@ BENCH_APP_PATHS = (
 # dispatch loop's steps; the chained harness's two loop lengths)
 MEASURE_STEP_ENV = {'BENCH_BATCH': '32', 'BENCH_STEPS': '5', 'N_SHORT': '2',
                     'N_LONG': '8'}
-MEASURE_OVERLAP_BATCHES = (8, 32)
 MEASURE_MODELS = ('ssd_mobilenet_v2', 'efficientdet_lite4')
 MEASURE_OVERLAY = (16, 1080, 1920)
 # the kernel launches of bench nms by (kernel, shape): kernel 1 under
@@ -279,8 +279,8 @@ BENCH_CLEARED = (
     'WATSOR_DEVICE_POOL', 'WATSOR_MODEL', 'TRT_FLOAT_PRECISION',
     'BENCH_BATCH', 'BENCH_STEPS', 'BASELINE5_CAP', 'BASELINE5_OUT',
     'N_SHORT', 'N_LONG', 'WATSOR_FUSED_HEADS',
-    'HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'OVERLAP_RESULTS',
-    'ROOFLINE_OUT', 'VALIDATE_OUT', 'WARM_RESTART_OUT', 'PROFILE_OUT')
+    'HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'ROOFLINE_OUT',
+    'VALIDATE_OUT', 'WARM_RESTART_OUT', 'PROFILE_OUT')
 
 
 def log(*args):
@@ -1247,6 +1247,46 @@ def fleet_app_check(app, url, n_cameras, watch_s=20.0):
                                                renderer.failures))
 
 
+# the program's spans /profiler must sum while the main path serves
+PROFILER_SPANS = ('backend.dispatch', 'backend.fill', 'backend.h2d',
+                  'backend.step', 'backend.filters', 'backend.pack',
+                  'backend.resolve', 'backend.wait', 'backend.fetch',
+                  'backend.unpack', 'detector.gather', 'detector.stage',
+                  'detector.scatter', 'detector.scatter.write',
+                  'detector.scatter.latch', 'detector.scatter.meters')
+
+
+def profiler_check(app, url, seconds=2):
+    """phase3: GET /profiler while detections flow: the answer sums every
+    span of PROFILER_SPANS, each backend.dispatch's frames at most its
+    bucket, and the Chrome trace holds the card's kernels beside the
+    program's spans."""
+    with urllib.request.urlopen('{}/profiler?seconds={}'.format(
+            url, seconds), timeout=120) as r:
+        body = json.loads(r.read())
+    found = body['spans']
+    missing = [name for name in PROFILER_SPANS if name not in found]
+    if missing:
+        raise AssertionError('/profiler summed no {}: {}'.format(
+            ', '.join(missing), sorted(found)))
+    counts = found['backend.dispatch']['counts']
+    if not 0 < counts['frames'] <= counts['bucket']:
+        raise AssertionError('backend.dispatch counts {}'.format(counts))
+    with open(os.path.join(body['trace_dir'], 'trace.json')) as f:
+        events = json.load(f)['traceEvents']
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel')
+    marked = sum(1 for e in events if e.get('name') == 'backend.dispatch')
+    if not kernels or not marked:
+        raise AssertionError('/profiler trace: {} kernels, {} '
+                             'backend.dispatch events'.format(kernels,
+                                                              marked))
+    log('phase3 /profiler: {} s, {} kernels in the trace; {}'.format(
+        body['seconds'], kernels, json.dumps(
+            {name: [found[name]['calls'],
+                    round(found[name]['mean_ms'], 3)]
+             for name in PROFILER_SPANS})))
+
+
 def phase_train(device, name, label):
     """phase6a/6b: the zoo's ``name`` at full width (bf16 activations, f32
     parameters, make_optimizer()) trained TRAIN_STEPS[name] steps on one
@@ -2019,7 +2059,7 @@ def phase_bench(device, card, launches):
 
 def phase_measure(device, card, launches):
     """phase11: the measurement legs of watsor_tpu_torch/measure/ (``bench
-    host|nms|int8|overlap|models|overlay|restart``) on the card at fewer
+    host|nms|int8|models|overlay|restart``) on the card at fewer
     steps, one JSON line a leg (``_bench_leg``): ``nms`` launches kernel 1
     under fused_exact and kernel 3 under exact at C = 90 and C = 2,
     ``int8`` kernel 4 under its pallas mode (every mode's scores within
@@ -2029,7 +2069,7 @@ def phase_measure(device, card, launches):
     builds the four kernels and its restart child finds them. Any failed
     leg fails the phase."""
     from watsor_tpu_torch.measure import (host_budget, int8_full, nms_modes,
-                                          overlap, overlay, roofline_table,
+                                          overlay, roofline_table,
                                           warm_restart)
 
     def leg(name, env, run, expected=()):
@@ -2081,13 +2121,6 @@ def phase_measure(device, card, launches):
         log('int8 leg, mode {}:'.format(mode))
         phase_int8_reference(device, qdetector)
     del quantized
-
-    record, _, _ = leg('overlap', {}, lambda: overlap.measure(
-        device, batches=MEASURE_OVERLAP_BATCHES, log=log))
-    if [r['batch'] for r in record['rows']] != \
-            list(MEASURE_OVERLAP_BATCHES) or \
-            record['marginal_ms_per_frame'] is None:
-        raise AssertionError('overlap record incomplete: {}'.format(record))
 
     record, _, _ = leg('models', MEASURE_STEP_ENV,
                        lambda: roofline_table.measure(
@@ -2382,7 +2415,8 @@ def main():
          'int8 pipeline'),
         ('phase3 application',
          lambda: phase_app('phase3 application (main path)',
-                           {'WATSOR_FUSED_BLOCKS': '1'}), None),
+                           {'WATSOR_FUSED_BLOCKS': '1'},
+                           inspect=profiler_check), None),
         ('phase3 application int8',
          lambda: phase_app('phase3 application (int8 path, nms exact)',
                            {'WATSOR_FUSED_BLOCKS': None,

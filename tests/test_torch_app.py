@@ -122,6 +122,8 @@ def _check_profiler(app, url, tmp_path):
     assert not first.is_alive()
     status, body = answers['first']
     assert status == 200 and body['seconds'] == 2.0
+    # the detector thread's spans, summed by name
+    assert body['spans']['backend.dispatch']['calls'] >= 1
     assert os.path.dirname(body['trace_dir']) == str(tmp_path)
     assert os.path.basename(body['trace_dir']).startswith('watsor-trace-')
     trace = os.path.join(body['trace_dir'], 'trace.json')

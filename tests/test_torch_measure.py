@@ -1,10 +1,9 @@
 """The port's measurement legs (watsor_tpu_torch/measure/, the subcommands
-``host``, ``nms``, ``int8``, ``overlap``, ``models``, ``overlay`` and
-``restart`` of ``python -m watsor_tpu_torch.bench``) on the CPU against the
-scripts they port: scripts/host_budget.py, measure_nms_modes.py,
-validate_nms_modes.py, measure_nms_active.py, bench_int8_full.py,
-measure_overlap.py, roofline.py, validate_timing.py, measure_overlay.py
-and warm_restart.py.
+``host``, ``nms``, ``int8``, ``models``, ``overlay`` and ``restart`` of
+``python -m watsor_tpu_torch.bench``) on the CPU against the scripts they
+port: scripts/host_budget.py, measure_nms_modes.py, validate_nms_modes.py,
+measure_nms_active.py, bench_int8_full.py, roofline.py,
+validate_timing.py, measure_overlay.py and warm_restart.py.
 
 Each leg runs at a tiny size (batch 1, 64x64 inputs where the script
 hard-codes 300, short chains, 20 repetitions a host stage and one a JPEG
@@ -28,22 +27,22 @@ import torch
 
 from watsor_tpu_torch import bench, timing
 from watsor_tpu_torch.measure import (host_budget, int8_full, nms_modes,
-                                      overlap, roofline_table, warm_restart)
+                                      roofline_table, warm_restart)
 from watsor_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT_VARS = ('HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'OVERLAP_RESULTS',
-            'ROOFLINE_OUT', 'VALIDATE_OUT', 'WARM_RESTART_OUT')
+OUT_VARS = ('HOST_BUDGET_OUT', 'NMS_OUT', 'INT8_FULL_OUT', 'ROOFLINE_OUT',
+            'VALIDATE_OUT', 'WARM_RESTART_OUT')
 KNOBS = OUT_VARS + ('BENCH_BATCH', 'BENCH_STEPS', 'N_SHORT', 'N_LONG',
                     'WATSOR_INT8_POINTWISE', 'WATSOR_FUSED_HEADS',
                     'WATSOR_KERNEL_CACHE_DIR')
 # what each leg writes, and to which variable, where that is set
 WRITES = {'host': ['HOST_BUDGET_OUT'], 'nms': ['NMS_OUT'],
-          'int8': ['INT8_FULL_OUT'], 'overlap': ['OVERLAP_RESULTS'],
+          'int8': ['INT8_FULL_OUT'],
           'models': ['ROOFLINE_OUT', 'VALIDATE_OUT'], 'overlay': [],
           'restart': ['WARM_RESTART_OUT']}
 LEGS = {'host': ['host'], 'nms': ['nms'], 'int8': ['int8'],
-        'overlap': ['overlap'], 'models': ['models', 'efficientdet_lite0'],
+        'models': ['models', 'efficientdet_lite0'],
         'overlay': ['overlay', '2', '64', '96'], 'restart': ['restart']}
 
 
@@ -63,8 +62,6 @@ def tiny(monkeypatch, tmp_path):
     monkeypatch.setitem(host_budget.REPS, 'jpeg_viewer', 1)
     monkeypatch.setattr(nms_modes, 'INPUT_SIZE', 64)
     monkeypatch.setattr(int8_full, 'INPUT_SIZE', 64)
-    monkeypatch.setattr(overlap, 'BATCHES', (1, 2))
-    monkeypatch.setattr(overlap, 'REPS', 1)
     monkeypatch.setattr(warm_restart, 'BATCH', 1)
     # the zoo's quickest model to build on the CPU
     monkeypatch.setattr(warm_restart, 'MODEL', 'efficientdet_lite0')
@@ -194,14 +191,6 @@ def _check_int8(record):
         assert record[mode]['scores_cosine_vs_bf16'] >= 0.95
 
 
-def _check_overlap(record):
-    keys, = _assigned_dicts('measure_overlap', 'record')
-    row, = _call_dicts('measure_overlap', 'append')
-    assert set(record) == keys
-    assert [r['batch'] for r in record['rows']] == [1, 2]
-    assert all(set(r) == row for r in record['rows'])
-
-
 def _check_models(record):
     from watsor_tpu.roofline import roofline_row
 
@@ -239,7 +228,7 @@ def _check_restart(record):
 
 
 CHECKS = {'host': _check_host, 'nms': _check_nms, 'int8': _check_int8,
-          'overlap': _check_overlap, 'models': _check_models,
+          'models': _check_models,
           'overlay': _check_overlay, 'restart': _check_restart}
 
 
@@ -324,29 +313,6 @@ def test_host_imports_nothing_of_jax(tmp_path):
 
 
 # -- the derived numbers against the scripts' formulas ------------------------
-
-def test_overlap_formulas_equal_measure_overlap():
-    rows = [{'batch': 4, 'pipelined_ms': 3.7}, {'batch': 8, 'pipelined_ms': 5.1},
-            {'batch': 16, 'pipelined_ms': 8.3},
-            {'batch': 32, 'pipelined_ms': 14.9}]
-    for t_h2d, t_step, t_pipe in ((0.0012, 0.0051, 0.0055),
-                                  (0.004, 0.003, 0.0069), (0.0, 0.003, 0.1)):
-        # scripts/measure_overlap.py:85-86
-        denom = min(t_h2d, t_step)
-        want = (t_h2d + t_step - t_pipe) / denom if denom > 0 else 0.0
-        assert overlap.overlap_fraction(t_h2d, t_step, t_pipe) == \
-            pytest.approx(want, rel=1e-12, abs=0)
-    # scripts/measure_overlap.py:99-108
-    bs = np.array([r['batch'] for r in rows], np.float64)
-    ts = np.array([r['pipelined_ms'] for r in rows], np.float64)
-    b_slope, a_fixed = np.polyfit(bs, ts, 1)
-    fixed, marginal, corrected = overlap.fixed_marginal_split(rows)
-    assert fixed == pytest.approx(float(a_fixed), rel=1e-12)
-    assert marginal == pytest.approx(float(b_slope), rel=1e-12)
-    assert corrected == pytest.approx(1000.0 / b_slope, rel=1e-12)
-    flat = [dict(r, pipelined_ms=9.0 - r['batch'] / 8) for r in rows]
-    assert overlap.fixed_marginal_split(flat)[2] is None
-
 
 def test_cameras_per_core_equals_host_budget():
     for per_frame in (0.9278, 1.5, 8.7):

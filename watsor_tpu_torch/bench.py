@@ -9,7 +9,6 @@ of ``scripts/``, whose legs live in ``watsor_tpu_torch/measure/``.
     python -m watsor_tpu_torch.bench host    [--device DEV]   host_budget.py
     python -m watsor_tpu_torch.bench nms     [--device DEV]   the NMS modes
     python -m watsor_tpu_torch.bench int8    [--device DEV]   bench_int8_full.py
-    python -m watsor_tpu_torch.bench overlap [--device DEV]   measure_overlap.py
     python -m watsor_tpu_torch.bench models  [--device DEV] [NAME ...]
     python -m watsor_tpu_torch.bench overlay [--device DEV] [BATCH H W]
     python -m watsor_tpu_torch.bench restart [--device DEV]   warm_restart.py
@@ -20,7 +19,7 @@ measure_nms_active.py; ``models`` roofline.py and validate_timing.py;
 ``lite4`` profile_lite4.py, profile_lite4_sections.py and
 profile_backbone_stages.py (its parts: ``full``, ``forward``, ``post``,
 ``pre``, ``backbone``, ``fpn``, ``heads``, ``stages``; none: all eight);
-each of the last eight is documented in its module under ``measure/``.
+each of the last seven is documented in its module under ``measure/``.
 
 Each subcommand prints one JSON line as the last line of its standard
 output and its progress on standard error. It reads the environment
@@ -34,7 +33,7 @@ error record (``value`` 0 and ``error``) and exits 1; it never carries on
 on the CPU. No subcommand writes into the repository or the working
 directory: each writes its line to its script's variable (``BASELINE5_OUT``,
 ``SWEEP_OUT``, ``HOST_BUDGET_OUT``, ``NMS_OUT``, ``INT8_FULL_OUT``,
-``OVERLAP_RESULTS``, ``ROOFLINE_OUT`` and ``VALIDATE_OUT``,
+``ROOFLINE_OUT`` and ``VALIDATE_OUT``,
 ``WARM_RESTART_OUT``, ``PROFILE_OUT``) only where that is set.
 
 ``step`` (bench.py): ``build_detector(SSDConfig())`` (ssd_mobilenet_v2 at
@@ -108,7 +107,6 @@ METRICS = {'step': 'ssd_mobilenet_v2_300 fused detect step',
            'host': 'host budget',
            'nms': 'nms modes',
            'int8': 'int8_full step vs bf16',
-           'overlap': 'transfer/compute overlap, SSD300 fused step',
            'models': 'roofline and chained timing of the zoo',
            'overlay': 'device overlay render',
            'restart': 'warm restart',
@@ -611,8 +609,8 @@ def error_record(command, error):
 def run_command(command, device, args):
     """The record of ``command`` on ``device``."""
     from watsor_tpu_torch.measure import (host_budget, int8_full, lite4,
-                                          nms_modes, overlap, overlay,
-                                          roofline_table, warm_restart)
+                                          nms_modes, overlay, roofline_table,
+                                          warm_restart)
     legs = {
         'step': lambda: run_step(device),
         'app': lambda: run_app(device, nms=args.nms),
@@ -620,7 +618,6 @@ def run_command(command, device, args):
         'host': lambda: host_budget.measure(device, log=_log),
         'nms': lambda: nms_modes.measure(device, log=_log),
         'int8': lambda: int8_full.measure(device, log=_log),
-        'overlap': lambda: overlap.measure(device, log=_log),
         'models': lambda: roofline_table.measure(
             device, names=args.operands, log=_log),
         'overlay': lambda: overlay.measure(

@@ -9,6 +9,13 @@ step is queued; ``resolve`` waits on the step's event and makes the one
 D2H copy. The host-side helpers (buckets, unpacking, the exact zone
 refinement) and the ``DetectorBackend`` protocol are copied from
 watsor_tpu/detection/backend.py:25-55,98-118,247-280.
+
+While a torch.profiler capture runs, each phase records a span
+(runtime/spans.py): ``backend.dispatch`` (counts ``frames`` and
+``bucket``) over ``backend.stage_wait``, ``backend.fill`` (``bytes``),
+``backend.h2d``, ``backend.step``, ``backend.filters`` and
+``backend.pack``; ``backend.resolve`` over ``backend.wait``,
+``backend.fetch``, ``backend.unpack`` and ``backend.refine`` (``rows``).
 """
 
 import contextlib
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from watsor_tpu_torch.ops.filter_device import apply_filters_device_indexed
+from watsor_tpu_torch.runtime import spans
 from watsor_tpu_torch.runtime.frames import MAX_ZONES
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -61,7 +69,8 @@ def _refine_zones(zone_refiners, senders, boxes, scores, classes, valid,
     """Exact full-res host zone pass over the device-filtered survivors
     (ops/filter_device.ZoneRefiner); the device test over-approximates so
     this only ever REMOVES boundary-band false keeps. Mutates the sliced
-    result arrays in place."""
+    result arrays in place; returns the number of rows it tested."""
+    tested = 0
     for i, sender in enumerate(senders[:len(boxes)]):
         refiner = zone_refiners.get(sender)
         if refiner is None:
@@ -69,6 +78,7 @@ def _refine_zones(zone_refiners, senders, boxes, scores, classes, valid,
         rows = np.nonzero(scores[i] > 0.0)[0]
         if not len(rows):
             continue
+        tested += len(rows)
         keep, hit = refiner(boxes[i, rows], classes[i, rows])
         zones_hit[i, rows] = hit[:, :zones_hit.shape[2]]
         drop = rows[~keep]
@@ -77,6 +87,7 @@ def _refine_zones(zone_refiners, senders, boxes, scores, classes, valid,
             classes[i, drop] = 0
             zones_hit[i, drop] = False
             valid[i] -= len(drop)
+    return tested
 
 
 def _unpack_outputs(packed, n, with_zones, max_zones):
@@ -98,13 +109,16 @@ def _finish(packed, start, n, with_zones, senders, zone_refiners):
     """The detect_batch tuple from a step's packed result on the host
     (dispatched at ``start``), with the exact zone refinement."""
     device_ms = (perf_counter() - start) * 1000.0
-    boxes, scores, classes, valid, zones_hit = _unpack_outputs(
-        packed, n, with_zones, MAX_ZONES)
+    with spans.span('backend.unpack'):
+        boxes, scores, classes, valid, zones_hit = _unpack_outputs(
+            packed, n, with_zones, MAX_ZONES)
     if zones_hit is None:
         return boxes, scores, classes, valid, device_ms
     if senders is not None and zone_refiners:
-        _refine_zones(zone_refiners, senders, boxes, scores, classes, valid,
-                      zones_hit)
+        with spans.span('backend.refine') as traced:
+            traced.count(rows=_refine_zones(zone_refiners, senders, boxes,
+                                            scores, classes, valid,
+                                            zones_hit))
     return boxes, scores, classes, valid, device_ms, zones_hit
 
 
@@ -167,25 +181,32 @@ class PinnedStaging:
         (tensor, copies): the caller appends the event of each copy it
         queues from the tensor."""
         n = len(rows)
+        with spans.span('backend.stage_wait'):
+            host, copies = self._slot(shape)
+        with spans.span('backend.fill', bytes=host.numel()):
+            dst = host.numpy()
+            if isinstance(rows, np.ndarray):
+                dst[:n] = rows
+            else:
+                for i, row in enumerate(rows):
+                    dst[i] = row
+            dst[n:] = 0
+        return host, copies
+
+    def _slot(self, shape):
+        """The next host tensor of ``shape`` and its copy events, once
+        every copy made from it has finished."""
         if not self._pinned:
-            host, copies = torch.zeros(shape, dtype=torch.uint8), []
-        else:
-            slots = self._slots.setdefault(tuple(shape), [None, None])
-            self._sel ^= 1
-            if slots[self._sel] is None:
-                slots[self._sel] = (torch.zeros(shape, dtype=torch.uint8,
-                                                pin_memory=True), [])
-            host, copies = slots[self._sel]
-            for event in copies:
-                event.synchronize()     # its previous H2D has finished
-            copies.clear()
-        dst = host.numpy()
-        if isinstance(rows, np.ndarray):
-            dst[:n] = rows
-        else:
-            for i, row in enumerate(rows):
-                dst[i] = row
-        dst[n:] = 0
+            return torch.zeros(shape, dtype=torch.uint8), []
+        slots = self._slots.setdefault(tuple(shape), [None, None])
+        self._sel ^= 1
+        if slots[self._sel] is None:
+            slots[self._sel] = (torch.zeros(shape, dtype=torch.uint8,
+                                            pin_memory=True), [])
+        host, copies = slots[self._sel]
+        for event in copies:
+            event.synchronize()     # its previous H2D has finished
+        copies.clear()
         return host, copies
 
 
@@ -219,13 +240,31 @@ def pack_outputs(boxes, scores, classes, valid, zones_hit=None):
 def _step(detector, x, table_store, row_idx):
     """Detect on the device batch ``x``, then with ``row_idx`` the camera
     filters from ``table_store``'s tables, then pack: one packed tensor."""
-    out = detector.detect_batch(x)
+    with spans.span('backend.step'):
+        out = detector.detect_batch(x)
     if row_idx is None:
-        return pack_outputs(out.boxes, out.scores, out.classes, out.valid)
-    scores, classes, zones_hit, valid = apply_filters_device_indexed(
-        out.boxes, out.scores, out.classes, *table_store.tables,
-        torch.from_numpy(row_idx).to(x.device))
-    return pack_outputs(out.boxes, scores, classes, valid, zones_hit)
+        with spans.span('backend.pack'):
+            return pack_outputs(out.boxes, out.scores, out.classes,
+                                out.valid)
+    with spans.span('backend.filters'):
+        scores, classes, zones_hit, valid = apply_filters_device_indexed(
+            out.boxes, out.scores, out.classes, *table_store.tables,
+            torch.from_numpy(row_idx).to(x.device))
+    with spans.span('backend.pack'):
+        return pack_outputs(out.boxes, scores, classes, valid, zones_hit)
+
+
+def _fetch(shards):
+    """Each (packed tensor, done event or None) of ``shards`` on the host,
+    once its step has finished: a list of arrays."""
+    arrays = []
+    for packed, done in shards:
+        with spans.span('backend.wait'):
+            if done is not None:
+                done.synchronize()
+        with spans.span('backend.fetch'):
+            arrays.append(packed.cpu().numpy())
+    return arrays
 
 
 class TorchDetectorBackend(DetectorBackend):
@@ -278,31 +317,35 @@ class TorchDetectorBackend(DetectorBackend):
         mutate ``images_u8`` until this returns."""
         n = images_u8.shape[0]
         b = max(_bucket(min(n, self._max_batch)), self._min_bucket)
-        row_idx = None
-        if self._table_store is not None and senders is not None:
-            row_idx = self._table_store.rows(senders, b)
-        with self._lock:
-            start = perf_counter()
-            host, copies = self._staging.fill(images_u8,
-                                              (b,) + images_u8.shape[1:])
-            stream = torch.cuda.stream(self._stream) if self._cuda \
-                else contextlib.nullcontext()
-            with stream, torch.inference_mode():
-                x = host.to(self._device, non_blocking=True)
-                if self._cuda:
-                    copies.append(recorded(self._stream))
-                packed = _step(self._detector, x, self._table_store,
-                               row_idx)
-                done = recorded(self._stream) if self._cuda else None
-        return (packed, done, row_idx is not None, n, start, senders)
+        with spans.span('backend.dispatch', batch=spans.NEXT, frames=n,
+                        bucket=b) as traced:
+            row_idx = None
+            if self._table_store is not None and senders is not None:
+                row_idx = self._table_store.rows(senders, b)
+            with self._lock:
+                start = perf_counter()
+                host, copies = self._staging.fill(images_u8,
+                                                  (b,) + images_u8.shape[1:])
+                stream = torch.cuda.stream(self._stream) if self._cuda \
+                    else contextlib.nullcontext()
+                with stream, torch.inference_mode():
+                    with spans.span('backend.h2d'):
+                        x = host.to(self._device, non_blocking=True)
+                        if self._cuda:
+                            copies.append(recorded(self._stream))
+                    packed = _step(self._detector, x, self._table_store,
+                                   row_idx)
+                    done = recorded(self._stream) if self._cuda else None
+        return (packed, done, row_idx is not None, n, start, senders,
+                traced.batch)
 
     def resolve(self, handle):
         """Wait for a dispatched step; returns the detect_batch tuple."""
-        packed, done, with_zones, n, start, senders = handle
-        if done is not None:
-            done.synchronize()
-        return _finish(packed.cpu().numpy(), start, n, with_zones, senders,
-                       self._zone_refiners)
+        packed, done, with_zones, n, start, senders, batch = handle
+        with spans.span('backend.resolve', batch=batch):
+            packed, = _fetch([(packed, done)])
+            return _finish(packed, start, n, with_zones, senders,
+                           self._zone_refiners)
 
     def detect_batch(self, images_u8, senders=None):
         return self.resolve(self.dispatch(images_u8, senders=senders))
@@ -367,38 +410,39 @@ class FleetBackend(DetectorBackend):
         waiting for the devices; returns a handle for :meth:`resolve`."""
         n = images_u8.shape[0]
         target = self._target(n)
-        row_idx = None
-        if self._table_stores is not None and senders is not None:
-            row_idx = next(iter(self._table_stores.values())).rows(senders,
-                                                                   target)
-        with self._lock:
-            start = perf_counter()
-            host, copies = self._staging.fill(
-                images_u8, (target,) + images_u8.shape[1:])
-            rows = self._fleet.shard_batch(row_idx) if row_idx is not None \
-                else None
+        with spans.span('backend.dispatch', batch=spans.NEXT, frames=n,
+                        bucket=target) as traced:
+            row_idx = None
+            if self._table_stores is not None and senders is not None:
+                row_idx = next(iter(self._table_stores.values())).rows(
+                    senders, target)
+            with self._lock:
+                start = perf_counter()
+                host, copies = self._staging.fill(
+                    images_u8, (target,) + images_u8.shape[1:])
+                rows = self._fleet.shard_batch(row_idx) \
+                    if row_idx is not None else None
 
-            def step(i, x):
-                if rows is None:
-                    return _step(self._fleet.replicas[i], x, None, None)
-                return _step(self._fleet.replicas[i], x,
-                             self._table_stores[self._devices[i]], rows[i])
-            outs = self._fleet.shard_steps(host, step, copies)
+                def step(i, x):
+                    if rows is None:
+                        return _step(self._fleet.replicas[i], x, None, None)
+                    return _step(self._fleet.replicas[i], x,
+                                 self._table_stores[self._devices[i]],
+                                 rows[i])
+                outs = self._fleet.shard_steps(host, step, copies)
         packed = [out for out, _ in outs]
         done = [event for _, event in outs]
-        return (packed, done, row_idx is not None, n, start, senders)
+        return (packed, done, row_idx is not None, n, start, senders,
+                traced.batch)
 
     def resolve(self, handle):
         """Wait for every shard; one D2H copy each, concatenated in mesh
         order; returns the detect_batch tuple."""
-        packed, done, with_zones, n, start, senders = handle
-        arrays = []
-        for shard, event in zip(packed, done):
-            if event is not None:
-                event.synchronize()
-            arrays.append(shard.cpu().numpy())
-        return _finish(np.concatenate(arrays, axis=0), start, n, with_zones,
-                       senders, self._zone_refiners)
+        packed, done, with_zones, n, start, senders, batch = handle
+        with spans.span('backend.resolve', batch=batch):
+            arrays = _fetch(zip(packed, done))
+            return _finish(np.concatenate(arrays, axis=0), start, n,
+                           with_zones, senders, self._zone_refiners)
 
     def detect_batch(self, images_u8, senders=None):
         return self.resolve(self.dispatch(images_u8, senders=senders))

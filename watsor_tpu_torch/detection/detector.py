@@ -1,7 +1,12 @@
 """The detector task and the device pool (counterpart of
 watsor_tpu/detection/detector.py). ``ObjectDetector`` is copied from
-watsor_tpu/detection/detector.py:33-233 with only its imports changed: it
-is device-agnostic, and the pool below hands it PyTorch devices."""
+watsor_tpu/detection/detector.py:33-233 with its imports changed and the
+program's spans added (runtime/spans.py, recorded while a torch.profiler
+capture runs): ``detector.gather`` (count ``frames``), ``detector.stage``
+(``resized``) and ``detector.scatter`` (``frames``, ``dropped``), with
+``detector.scatter.write``, ``detector.scatter.latch`` and
+``detector.scatter.meters`` inside it once a frame. It is
+device-agnostic, and the pool below hands it PyTorch devices."""
 
 import logging
 import os
@@ -13,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from watsor_tpu_torch.runtime import spans
 from watsor_tpu_torch.runtime.frames import DETECTION_DTYPE, MAX_DETECTIONS
 from watsor_tpu_torch.runtime.meters import FramesPerSecond, InferenceTime, \
     LatencyMeter
@@ -74,14 +80,25 @@ class ObjectDetector(Task):
             self.ready.set()
 
     def _process(self):
+        with spans.span('detector.gather') as traced:
+            payloads = self._gather()
+            traced.count(frames=len(payloads))
+        if not payloads:
+            self._finish_inflight()
+            return
+        self._detect(payloads)
+
+    def _gather(self):
+        """The next batch's payloads: the first within the poll, then more
+        until the batch is full or the window after the first has passed;
+        none when the poll found nothing."""
         try:
             # with a step in flight, poll briefly so its results scatter
             # promptly even when no new frames arrive
             payload = self.frame_queue.get(
                 timeout=0.002 if self._inflight is not None else 1)
         except Empty:
-            self._finish_inflight()
-            return
+            return []
         payloads = [payload]
         deadline = monotonic() + self._batch_window
         while len(payloads) < self._max_batch:
@@ -95,13 +112,13 @@ class ObjectDetector(Task):
                     payloads.append(self.frame_queue.get(timeout=remaining))
                 except Empty:
                     break
-        self._detect(payloads)
+        return payloads
 
     def _stage(self, staging, index, frame):
         """Copy one frame into the staging batch, resizing on the host only
         when the decode resolution differs from the detect resolution (the
         decoder normally emits a detect-resolution plane, making this a
-        straight memcpy)."""
+        straight memcpy). Returns whether it resized."""
         h, w = self._backend.input_hw
         detect_plane = getattr(frame, 'detect_plane', None)
         if detect_plane is not None and detect_plane.shape[:2] == (h, w):
@@ -112,16 +129,21 @@ class ObjectDetector(Task):
             import cv2
             cv2.resize(frame.image, (w, h), dst=staging[index],
                        interpolation=cv2.INTER_LINEAR)
+            return True
+        return False
 
     def _detect(self, payloads):
         frames = []
         senders = []
         staging = self._staging[self._staging_sel]
-        for p in payloads:
-            frame = self.frame_buffers[p.sender].frames[p.frame_index]
-            self._stage(staging, len(frames), frame)
-            frames.append(frame)
-            senders.append(p.sender)
+        with spans.span('detector.stage') as traced:
+            resized = 0
+            for p in payloads:
+                frame = self.frame_buffers[p.sender].frames[p.frame_index]
+                resized += self._stage(staging, len(frames), frame)
+                frames.append(frame)
+                senders.append(p.sender)
+            traced.count(resized=resized)
 
         # epoch snapshot: if a frame is force-reclaimed (30 s stale rule)
         # while this batch is in flight, its epoch changes — the late
@@ -180,46 +202,60 @@ class ObjectDetector(Task):
 
         per_frame_ms = device_ms / len(frames)
         now = time()
-        for i, frame in enumerate(frames):
-            if epochs is not None and frame.epoch != epochs[i]:
-                # the slot was force-reclaimed and re-owned while this
-                # batch was in flight; confirming would corrupt the new
-                # owner's latch cycle
-                self._logger.warning(
-                    'Dropping late detections for a reclaimed frame slot')
-                continue
-            if frame.epoch > 0:
-                self.latency((now - frame.epoch) * 1000.0)
-            if zones_hit is None:
-                n = min(int(valid[i]), MAX_DETECTIONS)
-                rows = np.arange(n)
-            else:
-                # device-filtered: kept rows are flagged, not compacted
-                rows = np.nonzero(scores[i] > 0.0)[0][:MAX_DETECTIONS]
-                n = len(rows)
-            records = np.zeros(n, DETECTION_DTYPE)
-            if n:
-                fh, fw = frame.image.shape[:2]
-                px = boxes[i, rows] * np.array([fh, fw, fh, fw], np.float32)
-                records['label'] = classes[i, rows]
-                records['confidence'] = scores[i, rows]
-                records['bbox'] = px
-                if zones_hit is not None:
-                    # vectorized zone scatter: stable-sort hit columns first
-                    # (ascending zone index), mask the tail — no Python loop
-                    # per detection (this runs 32x30 times a second)
-                    hits = zones_hit[i, rows]                  # [n, Z] bool
-                    width = min(10, hits.shape[1])
-                    order = np.argsort(~hits, axis=1,
-                                       kind='stable')[:, :width]
-                    mask = np.take_along_axis(hits, order, axis=1)
-                    records['zones'][:, :width] = np.where(
-                        mask, order + 1, 0)
-                    records['num_zones'] = mask.sum(axis=1)
-            frame.set_detections(records)
-            frame.latch.next()
-            self.fps(True)
-            self.inference_time(per_frame_ms)
+        with spans.span('detector.scatter', frames=len(frames)) as traced:
+            dropped = 0
+            for i, frame in enumerate(frames):
+                if epochs is not None and frame.epoch != epochs[i]:
+                    # the slot was force-reclaimed and re-owned while this
+                    # batch was in flight; confirming would corrupt the new
+                    # owner's latch cycle
+                    self._logger.warning(
+                        'Dropping late detections for a reclaimed frame '
+                        'slot')
+                    dropped += 1
+                    continue
+                # read before the latch confirms: the slot may be re-owned
+                # once it has
+                latency_ms = (now - frame.epoch) * 1000.0 \
+                    if frame.epoch > 0 else None
+                if zones_hit is None:
+                    n = min(int(valid[i]), MAX_DETECTIONS)
+                    rows = np.arange(n)
+                else:
+                    # device-filtered: kept rows are flagged, not compacted
+                    rows = np.nonzero(scores[i] > 0.0)[0][:MAX_DETECTIONS]
+                    n = len(rows)
+                records = np.zeros(n, DETECTION_DTYPE)
+                if n:
+                    fh, fw = frame.image.shape[:2]
+                    px = boxes[i, rows] * np.array([fh, fw, fh, fw],
+                                                   np.float32)
+                    records['label'] = classes[i, rows]
+                    records['confidence'] = scores[i, rows]
+                    records['bbox'] = px
+                    if zones_hit is not None:
+                        # vectorized zone scatter: stable-sort hit columns
+                        # first (ascending zone index), mask the tail — no
+                        # Python loop per detection (this runs 32x30 times
+                        # a second)
+                        hits = zones_hit[i, rows]              # [n, Z] bool
+                        width = min(10, hits.shape[1])
+                        order = np.argsort(~hits, axis=1,
+                                           kind='stable')[:, :width]
+                        mask = np.take_along_axis(hits, order, axis=1)
+                        records['zones'][:, :width] = np.where(
+                            mask, order + 1, 0)
+                        records['num_zones'] = mask.sum(axis=1)
+                with spans.span('detector.scatter.write'):
+                    frame.set_detections(records)
+                with spans.span('detector.scatter.latch'):
+                    frame.latch.next()
+                with spans.span('detector.scatter.meters'):
+                    if latency_ms is not None:
+                        self.latency(latency_ms)
+                    self.fps(True)
+                    self.inference_time(per_frame_ms)
+            traced.count(dropped=dropped)
 
 
 def _platform_devices(platform):

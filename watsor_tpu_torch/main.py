@@ -766,11 +766,13 @@ class TorchApplication:
 
     def _profiler_response(self, request):
         """GET /profiler?seconds=N: capture a torch.profiler trace (CUDA
-        kernels and copies on the card with the host's operators; the
-        host's alone on the CPU) of whatever the service runs for N
-        seconds (at most 10), written as a Chrome trace under
-        ``watsor-trace-<t>`` in the log path (or the temp dir), viewable in
-        Perfetto (counterpart of watsor_tpu/main.py:732-770).
+        kernels and copies on the card with every thread's host operators
+        and the program's spans, runtime/spans.py; the host's alone on the
+        CPU) of whatever the service runs for N seconds (at most 10),
+        written as a Chrome trace under ``watsor-trace-<t>`` in the log
+        path (or the temp dir), viewable in Perfetto (counterpart of
+        watsor_tpu/main.py:732-770). The answer names the directory and
+        sums the capture's spans by name (``spans.summary``).
 
         Single-flight: one profiler runs at a time in a process, and each
         capture holds a request thread for up to 10 s, so a second
@@ -780,8 +782,11 @@ class TorchApplication:
         import tempfile
         import time as time_module
 
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
         from werkzeug.wrappers import Response
+
+        from watsor_tpu_torch.runtime import spans
 
         if not self._profiler_lock.acquire(blocking=False):
             return Response(
@@ -795,15 +800,21 @@ class TorchApplication:
             activities = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
+            # the detector and camera threads, not only this request's
+            threads = _ExperimentalConfig(profile_all_threads=True)
+            spans.clear()
+            with profile(activities=activities,
+                         experimental_config=threads) as prof:
                 time_module.sleep(seconds)
+            captured = spans.summary(spans.records())
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(trace_dir, 'trace.json'))
             stale = sorted(glob.glob(os.path.join(base, 'watsor-trace-*')))
             for old in stale[:-self._PROFILER_KEEP]:
                 shutil.rmtree(old, ignore_errors=True)
             return Response(json.dumps({'trace_dir': trace_dir,
-                                        'seconds': seconds}),
+                                        'seconds': seconds,
+                                        'spans': captured}),
                             mimetype='application/json')
         finally:
             self._profiler_lock.release()

@@ -5,7 +5,6 @@
 - ``nms_modes`` (measure_nms_modes.py, validate_nms_modes.py,
   measure_nms_active.py): ``bench nms``;
 - ``int8_full`` (bench_int8_full.py): ``bench int8``;
-- ``overlap`` (measure_overlap.py): ``bench overlap``;
 - ``roofline_table`` (roofline.py, validate_timing.py): ``bench models``;
 - ``overlay`` (measure_overlay.py): ``bench overlay``;
 - ``warm_restart`` (warm_restart.py): ``bench restart``;

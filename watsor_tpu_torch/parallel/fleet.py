@@ -38,6 +38,7 @@ from watsor_tpu_torch.models.weights import (export_variables, hwio_to_oihw,
                                              load_variables)
 from watsor_tpu_torch.parallel.heads import SplitHead
 from watsor_tpu_torch.parallel.mesh import batch_sharding, split_kernels
+from watsor_tpu_torch.runtime import spans
 
 
 def replicate(detector, device, heads=None):
@@ -134,10 +135,11 @@ class FleetDetector:
         for i, shard in enumerate(self.shard_batch(batch)):
             stream = self.streams[i]
             with self.on_shard(i):
-                x = torch.as_tensor(shard).to(self.devices[i],
-                                              non_blocking=True)
-                if stream is not None and copies is not None:
-                    copies.append(recorded(stream))
+                with spans.span('backend.h2d'):
+                    x = torch.as_tensor(shard).to(self.devices[i],
+                                                  non_blocking=True)
+                    if stream is not None and copies is not None:
+                        copies.append(recorded(stream))
                 out = step(i, x)
                 outs.append((out, recorded(stream) if stream is not None
                              else None))
