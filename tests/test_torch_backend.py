@@ -20,7 +20,8 @@ from watsor_tpu.detection.backend import _unpack_outputs as j_unpack
 from watsor_tpu.filters.mask import ZoneMask as JZoneMask
 from watsor_tpu.ops import filter_device as j_filter
 from watsor_tpu_torch.config.coco import coco_label_index
-from watsor_tpu_torch.detection.backend import (TorchDetectorBackend,
+from watsor_tpu_torch.detection.backend import (FleetBackend,
+                                                TorchDetectorBackend,
                                                 _unpack_outputs, pack_outputs)
 from watsor_tpu_torch.detection.detector import ObjectDetector
 from watsor_tpu_torch.filters.mask import ZoneMask
@@ -28,6 +29,7 @@ from watsor_tpu_torch.runtime.frames import MAX_ZONES, FrameBuffer, State
 from watsor_tpu_torch.runtime.tasks import Payload
 from watsor_tpu_torch.models.ssd import SSDConfig, build_detector
 from watsor_tpu_torch.ops import filter_device as t_filter
+from watsor_tpu_torch.parallel import FleetDetector, make_mesh
 
 LABELS = [coco_label_index(n) for n in ('person', 'car', 'truck', 'dog')]
 DETECT_A = [{'person': {'confidence': 30, 'area': 1, 'zones': [2]}},
@@ -202,3 +204,56 @@ def test_backend_pads_to_the_bucket_and_slices_back(small_detector):
     np.testing.assert_array_equal(valid, direct.valid.numpy()[:3])
     np.testing.assert_array_equal(classes, direct.classes.numpy()[:3])
     np.testing.assert_array_equal(boxes, direct.boxes.numpy()[:3])
+
+
+@pytest.fixture(scope='module')
+def cpu_fleet(small_detector):
+    """The fleet's CPU pair: 'cpu:0' is another device to torch than
+    'cpu', so its shard runs on a rebuilt replica."""
+    return FleetDetector(make_mesh(devices=['cpu:0', 'cpu']), small_detector)
+
+
+# the same four frames from a masked camera, an unmasked one, and both
+IN_FLIGHT_SENDERS = (['a'] * 4, ['b'] * 4, ['b', 'a', 'a', 'b'])
+
+
+@pytest.mark.parametrize('order', ['one_ahead', 'three_deep'])
+@pytest.mark.parametrize('kind', ['single', 'fleet'])
+def test_batches_in_flight_resolve_to_their_own_results(small_detector,
+                                                        cpu_fleet, kind,
+                                                        order):
+    """Three batches of the same frames with different senders, dispatched
+    before the batch ahead is resolved (one ahead as ObjectDetector runs,
+    or all three at once): each resolves bit for bit to its own
+    synchronous ``detect_batch``, zones and the exact refiner included."""
+    tables = _camera_tables(t_filter)
+    refiners = {'a': t_filter.ZoneRefiner(_zone_mask(), DETECT_A)}
+    if kind == 'single':
+        backend = TorchDetectorBackend(small_detector, 'cpu',
+                                       camera_tables=tables,
+                                       zone_refiners=refiners)
+    else:
+        backend = FleetBackend(cpu_fleet, camera_tables=tables,
+                               zone_refiners=refiners)
+    frames = np.random.default_rng(5).integers(0, 256, (4, 96, 96, 3),
+                                               np.uint8)
+    want = [backend.detect_batch(frames, senders=senders)
+            for senders in IN_FLIGHT_SENDERS]
+    # the rows take the cameras' own rules: the batches differ
+    assert not np.array_equal(want[0][3], want[1][3])
+    assert want[0][5].any(), 'the masked camera must hit a zone'
+    got = [None] * 3
+    if order == 'one_ahead':
+        handles = [backend.dispatch(frames, senders=IN_FLIGHT_SENDERS[0])]
+        for i, senders in enumerate(IN_FLIGHT_SENDERS[1:]):
+            handles.append(backend.dispatch(frames, senders=senders))
+            got[i] = backend.resolve(handles[i])
+        got[2] = backend.resolve(handles[2])
+    else:
+        handles = [backend.dispatch(frames, senders=senders)
+                   for senders in IN_FLIGHT_SENDERS]
+        got = [backend.resolve(handle) for handle in handles]
+    for expected, result in zip(want, got):
+        assert len(result) == len(expected) == 6
+        for i in (0, 1, 2, 3, 5):                 # all but device_ms
+            np.testing.assert_array_equal(result[i], expected[i])

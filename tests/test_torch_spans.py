@@ -15,7 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from watsor_tpu_torch.detection.backend import (FleetBackend,
+from watsor_tpu_torch.detection.backend import (FleetBackend, _fetch,
                                                 TorchDetectorBackend)
 from watsor_tpu_torch.detection.detector import ObjectDetector
 from watsor_tpu_torch.filters.mask import ZoneMask
@@ -219,6 +219,39 @@ def test_backend_dispatch_and_resolve_emit_every_span(watched_detector,
     assert refine.counts['rows'] >= 0
     shards = 2 if kind == 'fleet' else 1
     assert len(got['backend.step']) == len(got['backend.wait']) == shards
+    # no event on the CPU: the step has finished when resolve comes
+    assert all(r.counts == {'pending': 0} for r in got['backend.wait'])
+
+
+class _Done:
+    """A step's done event, still running (``query()`` false) or
+    finished."""
+
+    def __init__(self, running):
+        self.running = running
+        self.waited = 0
+
+    def query(self):
+        return not self.running
+
+    def synchronize(self):
+        self.waited += 1
+        self.running = False
+
+
+def test_wait_counts_a_step_still_running_as_pending():
+    """``backend.wait`` counts ``pending`` 1 where the step's event has not
+    completed as ``resolve`` reaches it, and waits on it there; 0 where it
+    has, or where there is no event."""
+    running, finished = _Done(True), _Done(False)
+    packed = torch.zeros(2, 3)
+    with capture():
+        arrays = _fetch([(packed, running), (packed, finished),
+                         (packed, None)])
+    assert len(arrays) == 3 and running.waited == 1
+    waits = _by_name(spans.records())['backend.wait']
+    assert [r.counts for r in waits] == [{'pending': 1}, {'pending': 0},
+                                         {'pending': 0}]
 
 
 class _Backend:
@@ -279,9 +312,9 @@ def test_object_detector_emits_gather_stage_and_scatter():
         assert all(r.parent in ids for r in got[name])
 
 
-def test_profiler_endpoint_sums_the_captures_spans(tmp_path):
-    """``/profiler``'s answer sums the spans recorded during its capture,
-    by name, with none from before it; another thread's spans count."""
+def _profiler_answer(tmp_path, step):
+    """``/profiler?seconds=0.3``'s status and JSON body, with ``step()``
+    called over and over on another thread while it runs."""
     spans.clear()
     app = types.SimpleNamespace(
         _profiler_lock=threading.Lock(),
@@ -291,9 +324,7 @@ def test_profiler_endpoint_sums_the_captures_spans(tmp_path):
 
     def work():
         while not stop.is_set():
-            with spans.span('backend.dispatch', batch=spans.NEXT, frames=2,
-                            bucket=2):
-                time.sleep(0.001)
+            step()
 
     worker = threading.Thread(target=work)
     worker.start()
@@ -304,8 +335,19 @@ def test_profiler_endpoint_sums_the_captures_spans(tmp_path):
         stop.set()
         worker.join(10)
     assert not worker.is_alive()
-    body = json.loads(response.get_data())
-    assert response.status_code == 200 and body['seconds'] == 0.3
+    return response.status_code, json.loads(response.get_data())
+
+
+def test_profiler_endpoint_sums_the_captures_spans(tmp_path):
+    """``/profiler``'s answer sums the spans recorded during its capture,
+    by name, with none from before it; another thread's spans count."""
+    def step():
+        with spans.span('backend.dispatch', batch=spans.NEXT, frames=2,
+                        bucket=2):
+            time.sleep(0.001)
+
+    status, body = _profiler_answer(tmp_path, step)
+    assert status == 200 and body['seconds'] == 0.3
     summary = body['spans']['backend.dispatch']
     assert summary['calls'] >= 1
     assert summary['counts'] == {'frames': 2 * summary['calls'],
@@ -314,3 +356,19 @@ def test_profiler_endpoint_sums_the_captures_spans(tmp_path):
         summary['total_ms'] / summary['calls'])
     with open(os.path.join(body['trace_dir'], 'trace.json')) as f:
         assert '"backend.dispatch"' in f.read()
+
+
+def test_profiler_endpoint_sums_the_pending_waits(tmp_path):
+    """``/profiler``'s summary of ``backend.wait`` sums ``pending``: one a
+    resolve that found its step still running, as every one here does."""
+    packed = torch.zeros(2, 3)
+
+    def step():
+        _fetch([(packed, _Done(True))])
+        time.sleep(0.001)
+
+    status, body = _profiler_answer(tmp_path, step)
+    assert status == 200
+    summary = body['spans']['backend.wait']
+    assert summary['calls'] >= 1
+    assert summary['counts'] == {'pending': summary['calls']}

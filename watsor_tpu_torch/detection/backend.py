@@ -1,12 +1,14 @@
 """The PyTorch detector backend (counterpart of JaxDetectorBackend in
 watsor_tpu/detection/backend.py:58-260,415-564).
 
-One step per batch, on the backend's own CUDA stream: H2D from pinned
-staging, detect, per-camera device filters, and packing into one f32
-``[B, N+1, 7]`` array (cols 0:4 boxes, 4 score, 5 class, 6 zone bitmask;
-row N carries ``valid`` in col 0). ``dispatch`` returns as soon as the
-step is queued; ``resolve`` waits on the step's event and makes the one
-D2H copy. The host-side helpers (buckets, unpacking, the exact zone
+One step per batch, on the backend's own CUDA stream: H2D of the frames
+and of the cameras' table rows from pinned staging, detect, per-camera
+device filters, and packing into one f32 ``[B, N+1, 7]`` array (cols 0:4
+boxes, 4 score, 5 class, 6 zone bitmask; row N carries ``valid`` in col
+0). ``dispatch`` returns as soon as the step is queued: nothing in it
+synchronises the stream, so the caller fills the next batch while the card
+runs this one. ``resolve`` waits on the step's event and makes the one D2H
+copy. The host-side helpers (buckets, unpacking, the exact zone
 refinement) and the ``DetectorBackend`` protocol are copied from
 watsor_tpu/detection/backend.py:25-55,98-118,247-280.
 
@@ -14,7 +16,8 @@ While a torch.profiler capture runs, each phase records a span
 (runtime/spans.py): ``backend.dispatch`` (counts ``frames`` and
 ``bucket``) over ``backend.stage_wait``, ``backend.fill`` (``bytes``),
 ``backend.h2d``, ``backend.step``, ``backend.filters`` and
-``backend.pack``; ``backend.resolve`` over ``backend.wait``,
+``backend.pack``; ``backend.resolve`` over ``backend.wait`` (``pending``:
+1 when the step had not finished as ``resolve`` reached it),
 ``backend.fetch``, ``backend.unpack`` and ``backend.refine`` (``rows``).
 """
 
@@ -166,48 +169,58 @@ class _FilterTableStore:
 
 
 class PinnedStaging:
-    """Host staging for H2D copies: on the card two pinned buffers per
-    padded shape, used in turn, each refilled only after every copy made
-    from it has finished; on the CPU a fresh tensor a batch."""
+    """Host staging for H2D copies: on the card two pinned slots per
+    padded shape, used in turn, each a frames buffer and a table-rows
+    buffer, refilled only after every copy made from it has finished; on
+    the CPU fresh tensors a batch."""
 
     def __init__(self, pinned):
         self._pinned = pinned
-        self._slots = {}           # shape -> two (buffer, copy events)
+        self._slots = {}           # shape -> two (frames, rows, events)
         self._sel = 0
 
-    def fill(self, rows, shape):
-        """``rows`` (a batch array, or a list of frames) copied into a host
-        uint8 tensor of ``shape``, zero-padded past ``len(rows)``. Returns
-        (tensor, copies): the caller appends the event of each copy it
-        queues from the tensor."""
-        n = len(rows)
+    def fill(self, frames, shape, table_rows=None):
+        """``frames`` (a batch array, or a list of frames) copied into a
+        host uint8 tensor of ``shape``, zero-padded past ``len(frames)``,
+        and ``table_rows`` ([shape[0]] int32, or None) into a host int32
+        tensor beside it. Returns (frames tensor, rows tensor or None,
+        copies): the caller appends the event of each copy it queues from
+        either tensor."""
+        n = len(frames)
         with spans.span('backend.stage_wait'):
-            host, copies = self._slot(shape)
+            host, rows, copies = self._slot(shape)
         with spans.span('backend.fill', bytes=host.numel()):
             dst = host.numpy()
-            if isinstance(rows, np.ndarray):
-                dst[:n] = rows
+            if isinstance(frames, np.ndarray):
+                dst[:n] = frames
             else:
-                for i, row in enumerate(rows):
-                    dst[i] = row
+                for i, frame in enumerate(frames):
+                    dst[i] = frame
             dst[n:] = 0
-        return host, copies
+            if table_rows is None:
+                rows = None
+            else:
+                rows.numpy()[:] = table_rows
+        return host, rows, copies
 
     def _slot(self, shape):
-        """The next host tensor of ``shape`` and its copy events, once
-        every copy made from it has finished."""
+        """The next host tensors for ``shape`` (frames and table rows) and
+        their copy events, once every copy made from them has finished."""
         if not self._pinned:
-            return torch.zeros(shape, dtype=torch.uint8), []
+            return (torch.zeros(shape, dtype=torch.uint8),
+                    torch.zeros(shape[0], dtype=torch.int32), [])
         slots = self._slots.setdefault(tuple(shape), [None, None])
         self._sel ^= 1
         if slots[self._sel] is None:
-            slots[self._sel] = (torch.zeros(shape, dtype=torch.uint8,
-                                            pin_memory=True), [])
-        host, copies = slots[self._sel]
+            slots[self._sel] = (
+                torch.zeros(shape, dtype=torch.uint8, pin_memory=True),
+                torch.zeros(shape[0], dtype=torch.int32, pin_memory=True),
+                [])
+        host, rows, copies = slots[self._sel]
         for event in copies:
             event.synchronize()     # its previous H2D has finished
         copies.clear()
-        return host, copies
+        return host, rows, copies
 
 
 def recorded(stream):
@@ -237,19 +250,21 @@ def pack_outputs(boxes, scores, classes, valid, zones_hit=None):
     return torch.cat([body, tail], dim=1)
 
 
-def _step(detector, x, table_store, row_idx):
-    """Detect on the device batch ``x``, then with ``row_idx`` the camera
-    filters from ``table_store``'s tables, then pack: one packed tensor."""
+def _step(detector, x, table_store, rows):
+    """Detect on the device batch ``x``, then with ``rows`` (the batch's
+    rows of ``table_store``'s tables, on ``x``'s device) the camera
+    filters, then pack: one packed tensor. The caller has queued the
+    copies of ``x`` and ``rows`` from pinned staging, so nothing here
+    waits for the device."""
     with spans.span('backend.step'):
         out = detector.detect_batch(x)
-    if row_idx is None:
+    if rows is None:
         with spans.span('backend.pack'):
             return pack_outputs(out.boxes, out.scores, out.classes,
                                 out.valid)
     with spans.span('backend.filters'):
         scores, classes, zones_hit, valid = apply_filters_device_indexed(
-            out.boxes, out.scores, out.classes, *table_store.tables,
-            torch.from_numpy(row_idx).to(x.device))
+            out.boxes, out.scores, out.classes, *table_store.tables, rows)
     with spans.span('backend.pack'):
         return pack_outputs(out.boxes, scores, classes, valid, zones_hit)
 
@@ -259,8 +274,10 @@ def _fetch(shards):
     once its step has finished: a list of arrays."""
     arrays = []
     for packed, done in shards:
-        with spans.span('backend.wait'):
-            if done is not None:
+        with spans.span('backend.wait') as traced:
+            pending = done is not None and not done.query()
+            traced.count(pending=int(pending))
+            if pending:
                 done.synchronize()
         with spans.span('backend.fetch'):
             arrays.append(packed.cpu().numpy())
@@ -324,17 +341,19 @@ class TorchDetectorBackend(DetectorBackend):
                 row_idx = self._table_store.rows(senders, b)
             with self._lock:
                 start = perf_counter()
-                host, copies = self._staging.fill(images_u8,
-                                                  (b,) + images_u8.shape[1:])
+                host, rows, copies = self._staging.fill(
+                    images_u8, (b,) + images_u8.shape[1:], row_idx)
                 stream = torch.cuda.stream(self._stream) if self._cuda \
                     else contextlib.nullcontext()
                 with stream, torch.inference_mode():
                     with spans.span('backend.h2d'):
                         x = host.to(self._device, non_blocking=True)
+                        if rows is not None:
+                            rows = rows.to(self._device, non_blocking=True)
                         if self._cuda:
                             copies.append(recorded(self._stream))
                     packed = _step(self._detector, x, self._table_store,
-                                   row_idx)
+                                   rows)
                     done = recorded(self._stream) if self._cuda else None
         return (packed, done, row_idx is not None, n, start, senders,
                 traced.batch)
@@ -418,18 +437,14 @@ class FleetBackend(DetectorBackend):
                     senders, target)
             with self._lock:
                 start = perf_counter()
-                host, copies = self._staging.fill(
-                    images_u8, (target,) + images_u8.shape[1:])
-                rows = self._fleet.shard_batch(row_idx) \
-                    if row_idx is not None else None
+                host, rows, copies = self._staging.fill(
+                    images_u8, (target,) + images_u8.shape[1:], row_idx)
 
-                def step(i, x):
-                    if rows is None:
-                        return _step(self._fleet.replicas[i], x, None, None)
-                    return _step(self._fleet.replicas[i], x,
-                                 self._table_stores[self._devices[i]],
-                                 rows[i])
-                outs = self._fleet.shard_steps(host, step, copies)
+                def step(i, x, rows=None):
+                    store = None if rows is None \
+                        else self._table_stores[self._devices[i]]
+                    return _step(self._fleet.replicas[i], x, store, rows)
+                outs = self._fleet.shard_steps(host, step, copies, rows)
         packed = [out for out, _ in outs]
         done = [event for _, event in outs]
         return (packed, done, row_idx is not None, n, start, senders,

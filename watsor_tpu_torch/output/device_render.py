@@ -168,7 +168,8 @@ class DeviceRenderer:
             m = min(len(request.boxes), MAX_DETECTIONS)
             boxes[i, :m] = request.boxes[:m]
             classes[i, :m] = request.classes[:m]
-        host, copies = staging.fill([r.image for r in batch], (b, h, w, 3))
+        host, _, copies = staging.fill([r.image for r in batch],
+                                       (b, h, w, 3))
         if stream is None:
             out = render_boxes(host, torch.from_numpy(boxes),
                                torch.from_numpy(classes), table,

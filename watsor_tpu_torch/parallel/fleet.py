@@ -125,22 +125,30 @@ class FleetDetector:
     def shard_batch(self, frames_u8):
         return batch_sharding(self.mesh, frames_u8)
 
-    def shard_steps(self, batch, step, copies=None):
+    def shard_steps(self, batch, step, copies=None, rows=None):
         """``step(i, x)`` once a shard of the host batch ``batch``, in mesh
         order: ``x`` is shard ``i`` copied to its device, and the step is
         queued on the shard's device and stream in inference mode. With
-        ``copies``, each shard's copy event is appended to it. Returns
-        [(the step's result, its done event or None on the CPU)]."""
+        ``rows`` (a host tensor of one entry a frame of ``batch``),
+        ``step(i, x, r)``, ``r`` shard ``i``'s part of ``rows`` copied
+        beside ``x``. The copies do not wait for the device where the
+        host tensors are pinned. With ``copies``, each shard's event after
+        its copies is appended to it. Returns [(the step's result, its done
+        event or None on the CPU)]."""
         outs = []
+        row_shards = self.shard_batch(rows) if rows is not None else None
         for i, shard in enumerate(self.shard_batch(batch)):
             stream = self.streams[i]
             with self.on_shard(i):
                 with spans.span('backend.h2d'):
-                    x = torch.as_tensor(shard).to(self.devices[i],
-                                                  non_blocking=True)
+                    args = [torch.as_tensor(shard).to(self.devices[i],
+                                                      non_blocking=True)]
+                    if row_shards is not None:
+                        args.append(row_shards[i].to(self.devices[i],
+                                                     non_blocking=True))
                     if stream is not None and copies is not None:
                         copies.append(recorded(stream))
-                out = step(i, x)
+                out = step(i, *args)
                 outs.append((out, recorded(stream) if stream is not None
                              else None))
         return outs
