@@ -1,6 +1,7 @@
 """The detector backend on the card, at Lite4's size: ``dispatch`` queues
 the step without a synchronising call, batches in flight resolve to their
-own results, and ``resolve`` finds the step still running (run on the
+own results, and ``resolve`` finds the step still running; at
+RetinaNet-50's, the forward's stage spans stamp the device (run on the
 card: pytest -m cuda).
 
 This file imports nothing of the JAX package: the card's machine has no
@@ -18,6 +19,8 @@ from watsor_tpu_torch.parallel import FleetDetector, make_mesh
 from watsor_tpu_torch.runtime import spans
 
 MODEL = 'efficientdet_lite4'
+R50 = 'ssd_resnet50_v1_fpn_1024'
+STAGES = ('model.backbone', 'model.fpn', 'model.heads')
 BATCH = 64
 CAMERAS = ['cam{}'.format(i) for i in range(BATCH)]
 # cam0 carries the demo zone mask: first, last, and absent
@@ -35,6 +38,15 @@ def card():
 def lite4(card):
     from watsor_tpu_torch.models.zoo import build_from_zoo
     return build_from_zoo(MODEL, None, seed=0,
+                          active_labels=workload.watched_labels(),
+                          nms_mode='fused_exact', dtype=torch.bfloat16,
+                          device=card)
+
+
+@pytest.fixture(scope='module')
+def r50(card):
+    from watsor_tpu_torch.models.zoo import build_from_zoo
+    return build_from_zoo(R50, None, seed=0,
                           active_labels=workload.watched_labels(),
                           nms_mode='fused_exact', dtype=torch.bfloat16,
                           device=card)
@@ -95,3 +107,43 @@ def test_dispatch_queues_lite4_without_a_synchronise(lite4, card, kind):
              if r.name == 'backend.wait']
     assert len(waits) == 3 * (2 if kind == 'fleet' else 1)
     assert max(waits) == 1, waits
+
+
+@pytest.mark.cuda
+def test_r50_stage_spans_time_the_forward_on_the_card(r50, card):
+    """Under a profiler capture of CPU and CUDA, a zoned, filtered batch of
+    64 dispatches without a synchronising call, its three stage spans
+    recording their CUDA events; once resolved, each span's ``device_ns``
+    is positive, they follow one another on the stream, and their sum lies
+    within the device time from the step's first kernel to its last,
+    covering most of the kernels' busy time."""
+    backend = _backend('single', r50, card)
+    backend.warmup(batch=BATCH)
+    frames = _frames(0, r50.config.input_size)
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            handle = backend.dispatch(frames, senders=CAMERAS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        backend.resolve(handle)
+        torch.cuda.synchronize(card)
+    stages = {r.name: r for r in spans.records() if r.name in STAGES}
+    assert set(stages) == set(STAGES)
+    assert stages['model.heads'].counts == {'levels': 5, 'anchors': 130944}
+    device_ns = [stages[name].device_ns for name in STAGES]
+    assert all(ns is not None and ns > 0 for ns in device_ns), device_ns
+    kernels = [(e.start_ns(), e.end_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type().name == 'CUDA' and
+               not e.is_user_annotation()]
+    extent = max(e for _, e in kernels) - min(s for s, _ in kernels)
+    busy, reach = 0, None
+    for start, end in sorted(kernels):
+        start = max(start, reach or start)
+        busy += max(end - start, 0)
+        reach = max(end, reach or end)
+    assert sum(device_ns) <= extent, (device_ns, extent)
+    assert sum(device_ns) >= 0.8 * busy, (device_ns, busy)

@@ -29,6 +29,8 @@ from watsor_tpu_torch.runtime.tasks import Payload
 
 DISPATCH = ('backend.stage_wait', 'backend.fill', 'backend.h2d',
             'backend.step', 'backend.filters', 'backend.pack')
+# the SSD's forward, inside ``backend.step``
+MODEL = ('model.backbone', 'model.extras', 'model.heads')
 RESOLVE = ('backend.wait', 'backend.fetch', 'backend.unpack',
            'backend.refine')
 DETECT = [{'person': {'confidence': 30, 'area': 1, 'zones': [2]}},
@@ -184,7 +186,8 @@ def test_backend_dispatch_and_resolve_emit_every_span(watched_detector,
                                                       kind):
     """Both backends' dispatch and resolve, with camera filters and a zone
     refiner: every backend span, one batch number from dispatch through
-    resolve, and the dispatch's frames and bucket."""
+    resolve, the dispatch's frames and bucket, and the forward's stages
+    inside each step (no device stamp on the CPU)."""
     tables, refiners = _tables()
     if kind == 'single':
         backend = TorchDetectorBackend(watched_detector, 'cpu',
@@ -204,11 +207,11 @@ def test_backend_dispatch_and_resolve_emit_every_span(watched_detector,
     got = _by_name(spans.records())
     dispatch, = got.pop('backend.dispatch')
     resolve, = got.pop('backend.resolve')
-    assert set(got) == set(DISPATCH + RESOLVE)
+    assert set(got) == set(DISPATCH + MODEL + RESOLVE)
     assert dispatch.counts == {'frames': 3, 'bucket': 4}
     assert dispatch.batch is not None and resolve.batch == dispatch.batch
-    for name in DISPATCH + RESOLVE:
-        parent = dispatch if name in DISPATCH else resolve
+    for name in DISPATCH + MODEL + RESOLVE:
+        parent = resolve if name in RESOLVE else dispatch
         for record in got[name]:
             assert record.batch == dispatch.batch
             assert parent.start_ns <= record.start_ns <= record.end_ns <= \
@@ -219,6 +222,13 @@ def test_backend_dispatch_and_resolve_emit_every_span(watched_detector,
     assert refine.counts['rows'] >= 0
     shards = 2 if kind == 'fleet' else 1
     assert len(got['backend.step']) == len(got['backend.wait']) == shards
+    steps = {r.id for r in got['backend.step']}
+    for name in MODEL:
+        assert len(got[name]) == shards
+        assert all(r.parent in steps and r.device_ns is None
+                   for r in got[name])
+    assert {r.counts['anchors'] for r in got['model.heads']} == \
+        {len(watched_detector.anchors)}
     # no event on the CPU: the step has finished when resolve comes
     assert all(r.counts == {'pending': 0} for r in got['backend.wait'])
 

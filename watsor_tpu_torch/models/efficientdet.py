@@ -24,7 +24,6 @@ The JAX package's space-to-depth ``packing`` and its ``WATSOR_UPSAMPLE``
 A/B (two TPU lowerings of one result) are not ported.
 """
 
-import math
 from functools import lru_cache
 from typing import Any, NamedTuple, Tuple
 
@@ -40,6 +39,7 @@ from watsor_tpu_torch.models.mobilenet_v2 import (ConvBNReLU6, batch_norm,
 from watsor_tpu_torch.models.ssd import (Detector, check_anchors,
                                          make_detect_batch, place_model,
                                          resolve_device)
+from watsor_tpu_torch.ops.anchors import multilevel_anchors, pyramid_shapes
 
 # flax momentum of every BatchNorm of the family (backbone, BiFPN, heads)
 EFFDET_BN_MOMENTUM = 0.99
@@ -387,44 +387,16 @@ class EfficientDet(nn.Module):
         return boxes, logits
 
 
-# copied from watsor_tpu/models/efficientdet.py:451-489 (numpy)
 def effdet_feature_shapes(cfg: EfficientDetConfig):
-    dims = {}
-    d = cfg.input_size
-    for level in range(1, cfg.max_level + 1):
-        d = math.ceil(d / 2)
-        dims[level] = d
-    return [(dims[level], dims[level]) for level in
-            range(cfg.min_level, cfg.max_level + 1)]
+    return pyramid_shapes(cfg.input_size, cfg.min_level, cfg.max_level)
 
 
 def effdet_anchors(cfg: EfficientDetConfig) -> np.ndarray:
     """Octave-scaled anchors for P3..P7 (the EfficientDet generator:
     base size = anchor_scale * stride, 3 octave scales per level)."""
-    out = []
-    for (fh, fw), level in zip(effdet_feature_shapes(cfg),
-                               range(cfg.min_level, cfg.max_level + 1)):
-        stride = cfg.input_size / fh
-        y = (np.arange(fh, dtype=np.float32) + 0.5) * stride / cfg.input_size
-        x = (np.arange(fw, dtype=np.float32) + 0.5) * stride / cfg.input_size
-        ycenter, xcenter = np.meshgrid(y, x, indexing='ij')
-        sizes = []
-        for octave in range(cfg.num_scales):
-            base = cfg.anchor_scale * stride * (2 ** (octave / cfg.num_scales))
-            for aspect in cfg.aspect_ratios:
-                h = base / math.sqrt(aspect) / cfg.input_size
-                w = base * math.sqrt(aspect) / cfg.input_size
-                sizes.append((h, w))
-        heights = np.array([s[0] for s in sizes], np.float32)
-        widths = np.array([s[1] for s in sizes], np.float32)
-        yc = ycenter[..., None]
-        xc = xcenter[..., None]
-        h = heights[None, None, :]
-        w = widths[None, None, :]
-        boxes = np.stack([yc - 0.5 * h, xc - 0.5 * w,
-                          yc + 0.5 * h, xc + 0.5 * w], axis=-1)
-        out.append(boxes.reshape(-1, 4))
-    return np.concatenate(out, axis=0)
+    return multilevel_anchors(cfg.input_size, effdet_feature_shapes(cfg),
+                              cfg.anchor_scale, cfg.num_scales,
+                              cfg.aspect_ratios)
 
 
 def normalize_effdet(x, cfg):

@@ -102,9 +102,9 @@ def build_quantized_detector(config=None, variables=None, seed=0,
     from torch.func import functional_call
 
     from watsor_tpu_torch.models.ssd import (SSDConfig, build_detector,
-                                             make_detect_batch)
+                                             make_detect_batch,
+                                             ssd_normalizer)
     from watsor_tpu_torch.models.weights import leaves
-    from watsor_tpu_torch.ops.preprocess import normalize_images
 
     base = build_detector(config or SSDConfig(), variables=variables,
                           seed=seed, anchors=anchors, device=device)
@@ -137,9 +137,8 @@ def build_quantized_detector(config=None, variables=None, seed=0,
                                (images_f.to(cfg.dtype),))
 
     anchors_dev = torch.from_numpy(base.anchors).to(device)
-    detect_batch = make_detect_batch(
-        cfg, anchors_dev, raw_apply,
-        lambda x: normalize_images(x, dtype=cfg.dtype))
+    detect_batch = make_detect_batch(cfg, anchors_dev, raw_apply,
+                                     ssd_normalizer(cfg))
     return base._replace(variables=q_variables, detect_batch=detect_batch,
                          raw_apply=raw_apply,
                          rebuild=lambda device: build_quantized_detector(

@@ -7,7 +7,16 @@ background), both f32 (f64 for an f64 model). The heads' NCHW outputs are
 permuted to NHWC before the reshape, so anchors line up as in the flax
 model. The three SSD families of the JAX package: MobileNetV2 (at any
 width), MobileNetV1 and InceptionV2 backbones, each plain or SSDLite
-(separable extras and heads).
+(separable extras and heads); and TF OD's RetinaNet form of the SSD: a
+ResNet-50 v1 backbone (models/resnet_v1.py), an FPN over P3 to P7 in place
+of the extras and a weight-shared predictor in place of the per-layer
+heads (models/fpn.py), anchors of a ``MultiscaleAnchorSpec``, inputs less
+the channel means in place of [-1, 1].
+
+The forward opens the program's spans (runtime/spans.py) ``model.backbone``,
+``model.fpn`` (``model.extras`` without the FPN; counts ``levels``) and
+``model.heads`` (counts ``anchors`` and ``levels``), each stamped on the
+input's device.
 """
 
 import functools
@@ -17,21 +26,28 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from watsor_tpu_torch.models.fpn import (FPN, FPN_DEPTH, TOWER_LAYERS,
+                                         WeightSharedTower)
 from watsor_tpu_torch.models.mobilenet_v2 import (ConvBNReLU6,
                                                   MobileNetV2Backbone,
                                                   cast_convs, conv_same)
+from watsor_tpu_torch.models.resnet_v1 import CHANNEL_MEANS
 from watsor_tpu_torch.models.weights import (export_variables, init_weights,
                                              load_variables)
-from watsor_tpu_torch.ops.anchors import (AnchorSpec, anchors_per_location,
+from watsor_tpu_torch.ops.anchors import (AnchorSpec, MultiscaleAnchorSpec,
+                                          anchors_per_location,
+                                          multilevel_anchors, pyramid_shapes,
                                           ssd300_feature_shapes, ssd_anchors)
 from watsor_tpu_torch.ops.boxes import decode_boxes
 from watsor_tpu_torch.ops.nms import (FUSED_SUPPRESSION, PER_CLASS_MODES,
                                       batched_class_aware_nms,
                                       batched_class_aware_nms_fused_late)
-from watsor_tpu_torch.ops.preprocess import normalize_images, resize_bilinear
+from watsor_tpu_torch.ops.preprocess import (normalize_images,
+                                             resize_bilinear, subtract_means)
+from watsor_tpu_torch.runtime.spans import span
 
 
-BACKBONES = ('mobilenet_v2', 'mobilenet_v1', 'inception_v2')
+BACKBONES = ('mobilenet_v2', 'mobilenet_v1', 'inception_v2', 'resnet50_v1')
 
 
 class SSDConfig(NamedTuple):
@@ -47,7 +63,8 @@ class SSDConfig(NamedTuple):
     lite: bool = False
     width_multiplier: float = 1.0  # MobileNet backbones only
     extra_features: Tuple[int, ...] = (512, 256, 256, 128)
-    anchor_spec: AnchorSpec = AnchorSpec()
+    # a MultiscaleAnchorSpec for the resnet50_v1 backbone (its FPN's levels)
+    anchor_spec: Any = AnchorSpec()
     box_coder_scales: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
     iou_threshold: float = 0.6
     score_threshold: float = 0.005
@@ -59,14 +76,30 @@ class SSDConfig(NamedTuple):
 
 
 def check_supported(cfg):
-    """Raise for an unknown NMS mode (or, for an SSD, backbone)."""
-    if getattr(cfg, 'backbone', BACKBONES[0]) not in BACKBONES:
+    """Raise for an unknown NMS mode (or, for an SSD, backbone, or a
+    feature pyramid or predictor its backbone cannot feed)."""
+    backbone = getattr(cfg, 'backbone', BACKBONES[0])
+    if backbone not in BACKBONES:
         raise ValueError('unknown backbone {!r}; one of {}'.format(
             cfg.backbone, list(BACKBONES)))
+    spec = getattr(cfg, 'anchor_spec', None)
+    pyramid = isinstance(spec, MultiscaleAnchorSpec)
+    if pyramid != has_fpn(cfg) or (pyramid and cfg.lite):
+        raise ValueError('the resnet50_v1 backbone, and no other, takes a '
+                         'MultiscaleAnchorSpec (its FPN\'s levels), and no '
+                         'SSDLite heads')
+    if pyramid and not (spec.min_level == 3 and spec.max_level >= 5):
+        raise ValueError('the FPN runs from level 3 to level 5 or above')
     if cfg.nms_mode not in FUSED_SUPPRESSION and \
             cfg.nms_mode not in PER_CLASS_MODES:
         raise ValueError('unknown nms mode {!r}; one of {}'.format(
             cfg.nms_mode, sorted(FUSED_SUPPRESSION) + list(PER_CLASS_MODES)))
+
+
+def has_fpn(cfg):
+    """The RetinaNet form: the FPN and the weight-shared predictor in place
+    of the extras and the per-layer heads, the channel means subtracted."""
+    return getattr(cfg, 'backbone', None) == 'resnet50_v1'
 
 
 def make_backbone(cfg: SSDConfig):
@@ -77,35 +110,32 @@ def make_backbone(cfg: SSDConfig):
     if cfg.backbone == 'inception_v2':
         from watsor_tpu_torch.models.inception_v2 import InceptionV2Backbone
         return InceptionV2Backbone()
+    if cfg.backbone == 'resnet50_v1':
+        from watsor_tpu_torch.models.resnet_v1 import ResNet50V1
+        return ResNet50V1()
     return MobileNetV2Backbone(cfg.width_multiplier)
 
 
 class SSD(nn.Module):
-    """Feature extractor + extras + box/class conv heads."""
+    """Feature extractor + extras (or FPN) + box/class conv heads (or the
+    weight-shared predictor)."""
 
     def __init__(self, config: SSDConfig = SSDConfig()):
         super().__init__()
         check_supported(config)
         cfg = self.config = config
         self.backbone = make_backbone(cfg)
-        channels = list(self.backbone.out_channels)
-        x_ch = channels[-1]
-        for i, ch in enumerate(cfg.extra_features):
-            setattr(self, 'extra{}_pw'.format(i),
-                    ConvBNReLU6(x_ch, ch // 2, 1))
-            if cfg.lite:
-                # separable 3x3 s2: depthwise + pointwise (SSDLite extras)
-                setattr(self, 'extra{}_dw'.format(i),
-                        ConvBNReLU6(ch // 2, ch // 2, 3, stride=2,
-                                    groups=ch // 2))
-                setattr(self, 'extra{}'.format(i),
-                        ConvBNReLU6(ch // 2, ch, 1))
-            else:
-                setattr(self, 'extra{}'.format(i),
-                        ConvBNReLU6(ch // 2, ch, 3, stride=2))
-            x_ch = ch
-            channels.append(ch)
         npl = anchors_per_location(cfg.anchor_spec)
+        if has_fpn(cfg):
+            self.fpn = FPN(self.backbone.out_channels, FPN_DEPTH,
+                           cfg.anchor_spec.max_level)
+            self.num_features = len(npl)
+            for kind, width in (('box', 4), ('cls', cfg.num_classes + 1)):
+                setattr(self, kind + '_tower', WeightSharedTower(
+                    FPN_DEPTH, npl[0] * width, TOWER_LAYERS,
+                    self.num_features))
+            return
+        channels = self._extras(cfg)
         if len(channels) != len(npl):
             raise ValueError('{} feature maps for {} anchor layers'.format(
                 len(channels), len(npl)))
@@ -123,9 +153,33 @@ class SSD(nn.Module):
                     nn.Conv2d(ch, n * (cfg.num_classes + 1), k_out))
         self.num_features = len(channels)
 
-    def features(self, x):
-        c4, c5 = self.backbone(x)
-        feats = [c4, c5]
+    def _extras(self, cfg):
+        """The SSD extras' modules; returns every feature map's width."""
+        channels = list(self.backbone.out_channels)
+        x_ch = channels[-1]
+        for i, ch in enumerate(cfg.extra_features):
+            setattr(self, 'extra{}_pw'.format(i),
+                    ConvBNReLU6(x_ch, ch // 2, 1))
+            if cfg.lite:
+                # separable 3x3 s2: depthwise + pointwise (SSDLite extras)
+                setattr(self, 'extra{}_dw'.format(i),
+                        ConvBNReLU6(ch // 2, ch // 2, 3, stride=2,
+                                    groups=ch // 2))
+                setattr(self, 'extra{}'.format(i),
+                        ConvBNReLU6(ch // 2, ch, 1))
+            else:
+                setattr(self, 'extra{}'.format(i),
+                        ConvBNReLU6(ch // 2, ch, 3, stride=2))
+            x_ch = ch
+            channels.append(ch)
+        return channels
+
+    def neck(self, taps):
+        """The backbone's taps -> the feature maps the heads read: the FPN's
+        levels, or the taps and the extras."""
+        if has_fpn(self.config):
+            return self.fpn(taps)
+        feats = list(taps)
         for i in range(len(self.config.extra_features)):
             x = getattr(self, 'extra{}_pw'.format(i))(feats[-1])
             if self.config.lite:
@@ -136,9 +190,29 @@ class SSD(nn.Module):
     def forward(self, images, heads=None):
         """images [B, S, S, 3] NHWC float -> (box_enc, logits), f32.
         ``heads``: {head name: head} to run in place of the module's own
-        head convolutions (a split head of parallel/heads.py)."""
+        head convolutions (a split head of parallel/heads.py; not of the
+        weight-shared predictor)."""
         x = images.permute(0, 3, 1, 2)       # NCHW view of NHWC storage
-        feats = self.features(x)
+        device = x.device
+        with span('model.backbone', device=device):
+            taps = self.backbone(x)
+        with span('model.fpn' if has_fpn(self.config) else 'model.extras',
+                  device=device, levels=self.num_features):
+            feats = self.neck(taps)
+        with span('model.heads', device=device,
+                  levels=self.num_features) as traced:
+            out = self.predict(feats, heads)
+            traced.count(anchors=out[0].shape[1])
+        return out
+
+    def predict(self, feats, heads=None):
+        """The predictors over the feature maps -> (box_enc, logits)."""
+        num_cls = self.config.num_classes + 1
+        if has_fpn(self.config):
+            if heads:
+                raise ValueError('the weight-shared predictor does not split')
+            return concat_levels(self.box_tower(feats),
+                                 self.cls_tower(feats), num_cls)
         heads = heads or {}
         pairs, inputs = [], []
         for i, feat in enumerate(feats):
@@ -152,7 +226,7 @@ class SSD(nn.Module):
                 feat = (getattr(self, 'box_head{}_dw'.format(i))(feat),
                         getattr(self, 'cls_head{}_dw'.format(i))(feat))
             inputs.append(feat)
-        return apply_heads(inputs, pairs, self.config.num_classes + 1)
+        return apply_heads(inputs, pairs, num_cls)
 
 
 def apply_heads(features, heads, num_cls):
@@ -167,20 +241,40 @@ def apply_heads(features, heads, num_cls):
     box_out, cls_out = [], []
     for feat, (box_head, cls_head) in zip(features, heads):
         box_in, cls_in = feat if isinstance(feat, tuple) else (feat, feat)
-        B = box_in.shape[0]
-        b = conv(box_in, box_head)
-        c = conv(cls_in, cls_head)
-        box_out.append(b.permute(0, 2, 3, 1).reshape(B, -1, 4))
-        cls_out.append(c.permute(0, 2, 3, 1).reshape(B, -1, num_cls))
+        box_out.append(conv(box_in, box_head))
+        cls_out.append(conv(cls_in, cls_head))
+    return concat_levels(box_out, cls_out, num_cls)
+
+
+def concat_levels(box_out, cls_out, num_cls):
+    """The heads' NCHW outputs a level -> (box_enc [B, A, 4], logits [B, A,
+    num_cls]), the anchors in the flax (NHWC) order, level by level."""
+    B = box_out[0].shape[0]
+    box = [b.permute(0, 2, 3, 1).reshape(B, -1, 4) for b in box_out]
+    cls = [c.permute(0, 2, 3, 1).reshape(B, -1, num_cls) for c in cls_out]
     # f32 at least: f64 stays f64 (the f64 train step)
-    wide = torch.promote_types(box_out[0].dtype, torch.float32)
-    return (torch.cat(box_out, dim=1).to(wide),
-            torch.cat(cls_out, dim=1).to(wide))
+    wide = torch.promote_types(box[0].dtype, torch.float32)
+    return torch.cat(box, dim=1).to(wide), torch.cat(cls, dim=1).to(wide)
 
 
 def anchors_for(cfg: SSDConfig) -> np.ndarray:
+    spec = cfg.anchor_spec
+    if isinstance(spec, MultiscaleAnchorSpec):
+        return multilevel_anchors(
+            cfg.input_size, pyramid_shapes(cfg.input_size, spec.min_level,
+                                           spec.max_level),
+            spec.anchor_scale, spec.scales_per_octave, spec.aspect_ratios)
     return ssd_anchors(ssd300_feature_shapes(cfg.input_size),
                        cfg.anchor_spec)
+
+
+def ssd_normalizer(cfg: SSDConfig):
+    """[0, 255] -> the model's input in ``cfg.dtype``: less the channel
+    means for the RetinaNet form, else [-1, 1]."""
+    if has_fpn(cfg):
+        return functools.partial(subtract_means, means=CHANNEL_MEANS,
+                                 dtype=cfg.dtype)
+    return functools.partial(normalize_images, dtype=cfg.dtype)
 
 
 class Detector(NamedTuple):
@@ -321,9 +415,8 @@ def build_detector(config: SSDConfig = SSDConfig(), variables=None, seed=0,
     def raw_apply(images_f):
         return model(images_f.to(cfg.dtype), heads)
 
-    detect_batch = make_detect_batch(
-        cfg, anchors_dev, raw_apply,
-        functools.partial(normalize_images, dtype=cfg.dtype))
+    detect_batch = make_detect_batch(cfg, anchors_dev, raw_apply,
+                                     ssd_normalizer(cfg))
     return Detector(model, cfg, variables, anchors, device, detect_batch,
                     raw_apply, lambda device, heads=None: build_detector(
                         cfg, variables, anchors=anchors, device=device,

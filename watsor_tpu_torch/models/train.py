@@ -30,12 +30,13 @@ from watsor_tpu_torch.models.efficientdet import (EfficientDet,
                                                   EfficientDetConfig,
                                                   effdet_anchors,
                                                   normalize_effdet)
-from watsor_tpu_torch.models.ssd import SSD, anchors_for, resolve_device
+from watsor_tpu_torch.models.ssd import (SSD, anchors_for, resolve_device,
+                                         ssd_normalizer)
 from watsor_tpu_torch.models.weights import (export_variables, init_weights,
                                              load_variables)
 from watsor_tpu_torch.ops.boxes import (BOX_CODER_SCALES, encode_boxes,
                                         iou_matrix)
-from watsor_tpu_torch.ops.preprocess import normalize_images, resize_bilinear
+from watsor_tpu_torch.ops.preprocess import resize_bilinear
 
 MATCH_IOU = 0.5
 
@@ -53,10 +54,10 @@ def _model_for(config):
 
 def _normalize_for(config):
     """The family's serving normalization into the activation dtype:
-    (x - mean) / std for EfficientDet, x * 2/255 - 1 for the SSD."""
+    (x - mean) / std for EfficientDet, the SSD's ``ssd_normalizer``."""
     if _is_effdet(config):
         return lambda x: normalize_effdet(x, config)
-    return functools.partial(normalize_images, dtype=config.dtype)
+    return ssd_normalizer(config)
 
 
 def _ingest_for(config):

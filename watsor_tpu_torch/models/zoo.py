@@ -7,7 +7,8 @@ one, ``<model_path>/<name>.npz`` (flat ``path/to/leaf`` arrays); without a
 weight file the detector runs on weights initialized from a seed, with the
 JAX package's warning. Stored weights decide the head geometry, as in the
 JAX package: the class count and predictor kernel (and SSDLite or not) of
-an SSD; the FPN width and depth, head depth, fusion method and class count
+an SSD, the class count of its weight-shared predictor;
+the FPN width and depth, head depth, fusion method and class count
 of an EfficientDet. A TFLite conversion's ``postprocess`` entry carries
 the source graph's anchors and box-coder scales. ``save_weights`` writes
 the ``.msgpack`` file as the JAX package's does.
@@ -24,7 +25,8 @@ from watsor_tpu_torch.models.efficientdet import (EfficientDetConfig,
 from watsor_tpu_torch.models.msgpack import load_msgpack, save_msgpack
 from watsor_tpu_torch.models.ssd import (SSDConfig, build_detector,
                                          resolve_device)
-from watsor_tpu_torch.ops.anchors import anchors_per_location
+from watsor_tpu_torch.ops.anchors import (MultiscaleAnchorSpec,
+                                          anchors_per_location)
 from watsor_tpu_torch.models.weights import load_npz
 
 _LOGGER = logging.getLogger(__name__)
@@ -40,6 +42,15 @@ MODEL_REGISTRY = {
     'efficientdet_lite2': lite_config('lite2'),
     'efficientdet_lite3': lite_config('lite3'),
     'efficientdet_lite4': lite_config('lite4'),
+    # TF2 Detection Model Zoo, "SSD ResNet50 V1 FPN 1024x1024 (RetinaNet50)"
+    # (research/object_detection/configs/tf2/
+    # ssd_resnet50_v1_fpn_1024x1024_coco17_tpu-8.config)
+    'ssd_resnet50_v1_fpn_1024': SSDConfig(
+        input_size=1024, backbone='resnet50_v1',
+        anchor_spec=MultiscaleAnchorSpec(
+            min_level=3, max_level=7, anchor_scale=4.0, scales_per_octave=2,
+            aspect_ratios=(1.0, 2.0, 0.5)),
+        score_threshold=1e-8),
 }
 
 DEFAULT_MODEL = 'ssd_mobilenet_v2'
@@ -108,13 +119,19 @@ def _stored_effdet_geometry(config, tree):
 
 def _stored_ssd_geometry(config, tree):
     """watsor_tpu/models/zoo.py:127-151: the stored SSD weights decide
-    SSDLite or not, the predictor kernel and the class count."""
+    SSDLite or not, the predictor kernel and the class count; of a
+    weight-shared predictor, the class count, from its class predictor's
+    bias."""
+    npl0 = anchors_per_location(config.anchor_spec)[0]
+    if 'cls_tower' in tree:
+        bias = tree['cls_tower']['predict']['bias']
+        return config._replace(
+            num_classes=int(np.asarray(bias).size) // npl0 - 1)
     lite = 'box_head0_dw' in tree
     if lite:
         k = int(np.asarray(tree['box_head0_dw']['Conv_0']['kernel']).shape[0])
     else:
         k = int(np.asarray(tree['box_head0']['kernel']).shape[0])
-    npl0 = anchors_per_location(config.anchor_spec)[0]
     num_classes = int(np.asarray(tree['cls_head0']['bias']).size) // npl0 - 1
     return config._replace(lite=lite, head_kernel=k, num_classes=num_classes)
 

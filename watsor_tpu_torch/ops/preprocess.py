@@ -1,7 +1,8 @@
 """Device-side resize and normalize (counterpart of
 watsor_tpu/ops/preprocess.py): a separable bilinear resize as two f32
 contractions with dense [out, in] interpolation matrices, then the
-[-1, 1] SSD-MobileNet normalization."""
+[-1, 1] SSD-MobileNet normalization or the subtraction of channel means
+(TF OD's ResNet v1 extractors)."""
 
 from functools import lru_cache
 
@@ -54,6 +55,20 @@ def resize_bilinear(images, out_h: int, out_w: int):
 def normalize_images(x, dtype=torch.bfloat16):
     """[0, 255] -> dtype in [-1, 1] (the TF SSD-MobileNet convention)."""
     return (x.float() * (2.0 / 255.0) - 1.0).to(dtype)
+
+
+@lru_cache(maxsize=16)
+def _means_tensor(means, device):
+    """The channel means as an f32 tensor on ``device``, copied there once
+    (as ``_interp_tensor``)."""
+    with torch.inference_mode(False):
+        return torch.tensor(means, dtype=torch.float32, device=device)
+
+
+def subtract_means(x, means, dtype=torch.bfloat16):
+    """[0, 255] NHWC -> dtype, less the per-channel ``means`` (a tuple), in
+    f32 with no scaling."""
+    return (x.float() - _means_tensor(tuple(means), x.device)).to(dtype)
 
 
 def preprocess_batch(images_u8, out_h: int, out_w: int,
